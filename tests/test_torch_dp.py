@@ -1,0 +1,86 @@
+"""Port vs JAX: the max-only distance transform passes and the part-tree
+DP over a batch of levels, fed the same responses and parameters.
+
+Tolerance: ``rooti`` exact; ``rootv``, ``scores``, ``tmp`` and the DT
+passes rtol 1e-6, atol 1e-5 (the penalty expression is evaluated in the
+same order on both sides, so in practice they agree bit for bit; the
+margin covers a compiler contracting a multiply-add on the JAX side)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from partsbaseddetector_tpu.models import part_tree as tree_jax
+from partsbaseddetector_tpu.models import synthetic as syn_jax
+from partsbaseddetector_tpu.ops import dp as dp_jax
+from partsbaseddetector_tpu.ops import dt as dt_jax
+from partsbaseddetector_tpu_torch.ops import dp as dp_t
+from partsbaseddetector_tpu_torch.ops import dt as dt_t
+from test_torch_models import port_packed
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-6, atol=1e-5)
+
+
+def _weights(rng, M):
+    w = np.stack([rng.uniform(0.01, 0.12, M), rng.uniform(-0.05, 0.05, M),
+                  rng.uniform(0.01, 0.12, M), rng.uniform(-0.05, 0.05, M)],
+                 axis=1).astype(np.float32)
+    anc = rng.integers(-4, 5, size=(M, 2)).astype(np.int32)
+    return w, anc
+
+
+@pytest.mark.parametrize("shape", [(3, 9, 13), (4, 17, 11)])
+def test_dt_passes(shape):
+    rng = np.random.default_rng(shape[1])
+    src = rng.standard_normal((2,) + shape).astype(np.float32)
+    w, anc = _weights(rng, shape[0])
+    ref_x = jax.vmap(jax.vmap(lambda s, wm, am: dt_jax.dt_max_x(
+        s, wm[0], wm[1], am[0]), (0, 0, 0)), (0, None, None))(
+            jnp.asarray(src), jnp.asarray(w), jnp.asarray(anc))
+    ref_y = jax.vmap(jax.vmap(lambda s, wm, am: dt_jax.dt_max_y(
+        s, wm[2], wm[3], am[1]), (0, 0, 0)), (0, None, None))(
+            jnp.asarray(src), jnp.asarray(w), jnp.asarray(anc))
+    s_t = torch.from_numpy(src)
+    w_t, a_t = torch.from_numpy(w), torch.from_numpy(anc)
+    got_x = dt_t.dt_max_x(s_t, w_t[:, 0], w_t[:, 1], a_t[:, 0])
+    got_y = dt_t.dt_max_y(s_t, w_t[:, 2], w_t[:, 3], a_t[:, 1])
+    np.testing.assert_allclose(got_x.numpy(), np.asarray(ref_x), **TOL)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(ref_y), **TOL)
+    # scalar parameters
+    np.testing.assert_allclose(
+        dt_t.dt_max_x(s_t[0, 0], 0.05, -0.01, 2).numpy(),
+        np.asarray(dt_jax.dt_max_x(jnp.asarray(src[0, 0]), 0.05, -0.01, 2)),
+        **TOL)
+
+
+@pytest.mark.parametrize("compose", ["reference", "correct"])
+@pytest.mark.parametrize("maker,hw", [("tiny", (10, 13)),
+                                      ("person_like", (12, 16))])
+def test_dp_min_levels(maker, hw, compose):
+    jp = tree_jax.pack_model(getattr(syn_jax, maker)(seed=2))
+    pt = port_packed(jp)
+    rng = np.random.default_rng(11)
+    L, F = 3, jp.bank.shape[3]
+    pdfs = rng.standard_normal((L,) + hw + (F,)).astype(np.float32)
+    sizes = np.array([hw, (hw[0] - 2, hw[1] - 3), (hw[0] - 5, hw[1] - 4)],
+                     np.int32)
+    ref = dp_jax.dp_min_levels(jnp.asarray(pdfs), jp.components[0],
+                               compose, true_sizes=jnp.asarray(sizes))
+    got = dp_t.dp_min_levels(torch.from_numpy(pdfs), pt.components[0],
+                             compose, true_sizes=torch.from_numpy(sizes))
+    assert got.rooti.dtype == torch.int32
+    np.testing.assert_array_equal(got.rooti.numpy(), np.asarray(ref.rooti))
+    for f in ("rootv", "scores", "tmp"):
+        a, b = getattr(got, f).numpy(), np.asarray(getattr(ref, f))
+        assert a.shape == b.shape, f
+        np.testing.assert_allclose(a, b, err_msg=f, **TOL)
+    # one level, no true size: dp_min drops the level axis
+    one = dp_t.dp_min(torch.from_numpy(pdfs[0]), pt.components[0], compose)
+    ref1 = dp_jax.dp_min(jnp.asarray(pdfs[0]), jp.components[0], compose)
+    np.testing.assert_array_equal(one.rooti.numpy(), np.asarray(ref1.rooti))
+    np.testing.assert_allclose(one.rootv.numpy(), np.asarray(ref1.rootv),
+                               **TOL)
