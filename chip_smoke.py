@@ -12,10 +12,16 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. kernel vs plain version on the card: ops/walk.walk_tree against
      walk_tree_plain at the largest and the smallest main-path group
      shapes, both compose modes, on the main path's own DP outputs, on
-     seeded random maps and on maps with forced ties — X, Y, Mm equal;
-     median kernel and plain-version times (CUDA events); the kernel's
-     bound, with the card's dependent-load latency measured for its
-     latency term;
+     seeded random maps and on maps with forced ties, on the face-68
+     tree (4 root mixtures, layers 7 wide) at a small shape, and on
+     shapes and mixture counts that reach every template instance of
+     the kernel (lines read in pieces, 6 and 12 mixtures) — X, Y, Mm
+     equal; median kernel times with the L2 warm and flushed, with CUDA
+     events around the call (the host's time to reach the launch
+     counts) and with a device spin hiding the host (the kernel alone),
+     and the plain version's; the kernel's bound, with the card's
+     dependent-load latency in and out of the L2 measured for its
+     latency term; the DP's W-minor copy of tmp;
   4. main path: Detector(person_like(), device="cuda") with thresh 0.0
      on 8 seeded 640x480 uint8 frames (detect_batch_raw, B=8): the walk
      kernel's launch count, output shapes, sorted scores; again with
@@ -60,12 +66,24 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device ms of fn() over reps runs, CUDA events per run."""
+# an L2 flush: writing this many bytes evicts the 50 MB L2
+FLUSH_BYTES = 256 * 2**20
+# ~0.5 ms of device spin ahead of a timed launch, longer than the host
+# takes to reach the launch, so no host gap sits between the events
+BUSY_CYCLES = 1_000_000
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2, pre=None) -> float:
+    """Median ms of fn() over reps runs between two CUDA events; the
+    device is idle at the first, so the host's time to reach the launch
+    counts unless pre() queues device work longer than it.  pre() runs
+    before each run's first event, outside the timing."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if pre is not None:
+            pre()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -138,27 +156,31 @@ def walk_inputs_from_path(det, frames, group_index: int):
 
 
 def walk_args(scores, tmp, xs, ys, mv, comp, parent_static):
-    return dict(scores=scores.contiguous(), tmp=tmp.contiguous(), xs=xs,
-                ys=ys, mv=mv, defw=comp.defw,
+    """walk_tree's arguments; tmp as the DP stores it (W-minor), parent
+    on the host as the detector passes it."""
+    return dict(scores=scores.contiguous(), tmp=tmp, xs=xs, ys=ys, mv=mv,
+                defw=comp.defw,
                 anchor=comp.anchor.to(torch.float32).contiguous(),
                 bias=comp.bias,
-                parent=torch.tensor(parent_static, dtype=torch.int32,
-                                    device=scores.device))
+                parent=torch.tensor(parent_static, dtype=torch.int32))
 
 
 def synthetic_walk_inputs(comp, parent_static, L, H, W, seed, ties):
-    """Seeded maps at a main-path shape; with ties, integer-valued maps
-    and zero deformation weights and biases, so argmaxes meet equals."""
+    """Seeded maps at a given shape, tmp stored W-minor as the DP stores
+    it; with ties, integer-valued maps and zero deformation weights and
+    biases, so argmaxes meet equals."""
     dev = comp.defw.device
     g = torch.Generator(device=dev).manual_seed(seed)
     P, M = comp.filterid.shape
-    shape = (L, P, M, H, W)
+    shape, shape_t = (L, P, M, H, W), (L, P, M, W, H)
     if ties:
         scores = torch.randint(0, 3, shape, generator=g, device=dev).float()
-        tmp = torch.randint(0, 3, shape, generator=g, device=dev).float()
+        tmp_t = torch.randint(0, 3, shape_t, generator=g,
+                              device=dev).float()
     else:
         scores = torch.randn(shape, generator=g, device=dev)
-        tmp = torch.randn(shape, generator=g, device=dev)
+        tmp_t = torch.randn(shape_t, generator=g, device=dev)
+    tmp = tmp_t.transpose(-1, -2)
     nroot = int(comp.nmix[0])
     xs = torch.randint(0, W, (L, K), generator=g, device=dev,
                        dtype=torch.int32)
@@ -178,17 +200,29 @@ def call_walk(fn, a, compose):
               a["anchor"], a["bias"], a["parent"], compose)
 
 
-def load_latency_ns() -> float:
+def l2_flush():
+    """Write a FLUSH_BYTES buffer: every line the L2 held is evicted."""
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    return lambda: buf.zero_()
+
+
+def busy():
+    torch.cuda._sleep(BUSY_CYCLES)
+
+
+def load_latency_ns(n: int, flush=None) -> float:
     """The card's dependent-load latency in ns: one thread chasing a
-    random cyclic permutation of 4 Mi int32, timed at two chain lengths
-    so that the launch cancels.  Every run starts at the same link and
-    the warm-up runs leave the chain's lines (2.5 MB at most) in the L2,
-    so this is the latency of a dependent load that hits the L2: the
-    least one round of the walk can take.  The walk's timed runs repeat
-    one launch, whose distinct lines fit in the 50 MB L2 as well."""
+    random cyclic permutation of n int32, timed at two chain lengths so
+    that the launch cancels.  Every run starts at the same link.
+    Without flush, the warm-up runs leave the chain's lines (2.5 MB at
+    most) in the L2, so this is the latency of a dependent load that
+    hits the L2: the least one round of the walk can take, as in the
+    walk's warm runs, which repeat one launch.  With flush (run before
+    each timed run) over a chain larger than the L2, every link misses
+    it: one round of a walk whose maps the DP has pushed out of the
+    L2."""
     from partsbaseddetector_tpu_torch.ops import _build
     lib = _build.load_library()
-    n = 1 << 22
     g = torch.Generator(device="cuda").manual_seed(5)
     perm = torch.randperm(n, generator=g, device="cuda", dtype=torch.int32)
     nxt = torch.empty_like(perm)
@@ -203,27 +237,33 @@ def load_latency_ns() -> float:
                                f"{rc}")
 
     short, long_ = 2_000, 20_000
-    ms = [cuda_ms(lambda: chase(steps), reps=5) for steps in (short, long_)]
+    ms = [cuda_ms(lambda: chase(steps), reps=5, pre=flush)
+          for steps in (short, long_)]
     return (ms[1] - ms[0]) / (long_ - short) * 1e6
 
 
-def walk_bound(a, plain_outs, compose: str, load_ns: float) -> dict:
+def walk_bound(a, plain_outs, compose: str, load_ns: float,
+               miss_ns: float) -> dict:
     """The least time one walk launch could take on these inputs.
 
     bytes: each line the walk needs read once — the distinct columns and
     rows that the plain walk of these seeds touches — plus seeds,
     parameters and outputs; operations: the candidate expressions
     evaluated, at the float32 rate.  bound_ms is the larger of the two.
-    Beside it, the latency of a walk that takes the parts in sequence,
-    as the kernel does: a part waits for its parent and is three
-    dependent load-and-reduce rounds (the mixture's columns, then one
-    line, then the other), so (P-1)*3 loads of load_ns each; and the
-    bytes the kernel gathers, every candidate reading its own lines,
-    L*(P-1)*K*(M*H + W + H)*4."""
+    Beside it, the latency of a walk that takes the parts of one depth
+    side by side, as the kernel does: a part waits for its parent and
+    is at least two dependent rounds of loads (the lines keyed by the
+    parent's position, then the one line keyed by the result), so
+    depth*2 loads, of load_ns each with the L2 warm and miss_ns each
+    with it flushed; and the bytes the kernel gathers, every candidate
+    reading its own lines: L*(P-1)*K*(M*H + M*W + H)*4 under
+    "reference" (the M rows are speculative), L*(P-1)*K*(M*H + W)*4
+    under "correct"."""
+    from partsbaseddetector_tpu_torch.ops.walk import depth_layers
     X, Y, Mm = (o.long() for o in plain_outs)
     L, P, M, H, W = a["scores"].shape
     Kk = X.shape[-1]
-    par = a["parent"].long()
+    par = a["parent"].long().to(X.device)
     px, py = X[:, par[1:]], Y[:, par[1:]]          # parents' (L, P-1, K)
     x, y, mc = X[:, 1:], Y[:, 1:], Mm[:, 1:]
     lp = (torch.arange(L, device=X.device)[:, None, None] * P
@@ -245,20 +285,79 @@ def walk_bound(a, plain_outs, compose: str, load_ns: float) -> dict:
     flops = L * (P - 1) * Kk * (M * (H * 7 + 1) + (W + H) * 7)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
-    gathered = L * (P - 1) * Kk * (M * H + W + H) * 4
+    per_item = M * H + M * W + H if compose == "reference" else M * H + W
+    gathered = L * (P - 1) * Kk * per_item * 4
+    depth = len(depth_layers(a["parent"])[1]) - 2
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, flops=flops,
-                latency_ms=(P - 1) * 3 * load_ns * 1e-6,
+                bytes=nbytes, flops=flops, depth=depth,
+                latency_ms=depth * 2 * load_ns * 1e-6,
+                latency_cold_ms=depth * 2 * miss_ns * 1e-6,
                 gathered_bytes=gathered,
                 gathered_ms=gathered / HBM_BYTES_PER_S * 1e3)
 
 
+def walk_instance(M: int, H: int, W: int):
+    """The kernel instance (mixtures, column slots, row slots a lane)
+    that csrc/walk.cu's dispatch picks for these shapes."""
+    def slots(n):
+        need = -(-n // 32)
+        return min(8, need + need % 2)
+    sh, sw = slots(H), slots(W)
+    if M <= 4:
+        return 4, sh, sw
+    if M <= 8:
+        return (8, 2, 2) if sh <= 2 and sw <= 2 else (8, 4, 4)
+    return 16, 2, 2
+
+
+# every instance dispatch holds: 4 mixtures x column and row slots in
+# {2, 4, 6, 8}, then 8 and 16 mixtures
+WALK_INSTANCES = ({(4, a, b) for a in (2, 4, 6, 8) for b in (2, 4, 6, 8)}
+                  | {(8, 2, 2), (8, 4, 4), (16, 2, 2)})
+
+
+def coverage_cases():
+    """Synthetic walk cases that reach every kernel instance, and every
+    way an instance reads a line: in one piece or several (a line
+    longer than 32 x slots), so that under "reference" the speculative
+    rows are not held and under "correct" the column is read again.
+    Odd H or W take 4-byte loads, even ones 8-byte.  Returns {name:
+    inputs} and the set of (instance, column pieces, row pieces) hit."""
+    from partsbaseddetector_tpu_torch.models import synthetic
+    from partsbaseddetector_tpu_torch.models.part_tree import pack_model
+    trees = {M: pack_model(synthetic.person_like(nmixtures=M,
+                                                 root_nmixtures=r), "cuda")
+             for M, r in ((4, 1), (6, 3), (12, 2))}
+    shapes = [(4, h, w, False) for h in (37, 100, 171, 230)
+              for w in (52, 117, 190, 230)]
+    shapes += [(4, 300, 400, False), (4, 300, 400, True),
+               (4, 37, 117, True),
+               (6, 40, 52, False), (6, 118, 158, False),
+               (6, 118, 158, True), (6, 300, 400, False),
+               (12, 40, 52, False), (12, 118, 158, False),
+               (12, 118, 158, True)]
+    cases, hit = {}, set()
+    for i, (M, H, W, ties) in enumerate(shapes):
+        packed = trees[M]
+        inst = walk_instance(M, H, W)
+        hit.add((inst, H > 32 * inst[1], W > 32 * inst[2]))
+        name = f"M{M}-{H}x{W}{'-ties' if ties else ''}"
+        cases[name] = synthetic_walk_inputs(
+            packed.components[0], packed.parent_static[0], 2, H, W,
+            100 + i, ties)
+    return cases, hit
+
+
 def phase_kernel_vs_plain(det, frames) -> dict:
     from partsbaseddetector_tpu_torch.infer.detector import _dp_groups
+    from partsbaseddetector_tpu_torch.models import synthetic
+    from partsbaseddetector_tpu_torch.models.part_tree import pack_model
     from partsbaseddetector_tpu_torch.ops import walk
     comp = det.packed.components[0]
     pst = det.packed.parent_static[0]
+    face = pack_model(synthetic.face_like(), "cuda")
+    fcomp, fpst = face.components[0], face.parent_static[0]
     plan = det.plan_for(IMG)
     ngroups = sum(len(_dp_groups(b, det.dp_split)) for b in plan.buckets)
     real_big = walk_inputs_from_path(det, frames, 0)
@@ -266,7 +365,7 @@ def phase_kernel_vs_plain(det, frames) -> dict:
     L, _, _, H, W = real_big["scores"].shape
     Ls, _, _, Hs, Ws = real_small["scores"].shape
     log(f"largest group: L={L} H={H} W={W} K={K};  smallest: L={Ls} "
-        f"H={Hs} W={Ws}")
+        f"H={Hs} W={Ws};  face-68: L=4 H=40 W=52")
     cases = {
         "path-largest": real_big, "path-smallest": real_small,
         "rand-largest": synthetic_walk_inputs(comp, pst, L, H, W, 1, False),
@@ -275,10 +374,22 @@ def phase_kernel_vs_plain(det, frames) -> dict:
         "ties-largest": synthetic_walk_inputs(comp, pst, L, H, W, 3, True),
         "ties-smallest": synthetic_walk_inputs(comp, pst, Ls, Hs, Ws, 4,
                                                True),
+        "face68-rand": synthetic_walk_inputs(fcomp, fpst, 4, 40, 52, 5,
+                                             False),
+        "face68-ties": synthetic_walk_inputs(fcomp, fpst, 4, 40, 52, 6,
+                                             True),
     }
+    extra, hit = coverage_cases()
+    missing = WALK_INSTANCES - {inst for inst, _, _ in hit}
+    for M in (4, 8, 16):
+        for j, lines in ((1, "columns"), (2, "rows")):
+            if not any(h[0][0] == M and h[j] for h in hit):
+                missing.add(f"{M} mixtures, {lines} in pieces")
+    if missing:
+        raise RuntimeError(f"coverage cases miss kernel paths: {missing}")
     max_err = 0
     plain = {}
-    for name, a in cases.items():
+    for name, a in {**cases, **extra}.items():
         for compose in ("reference", "correct"):
             got = call_walk(walk.walk_tree, a, compose)
             ref = plain[name, compose] = call_walk(walk.walk_tree_plain, a,
@@ -287,28 +398,61 @@ def phase_kernel_vs_plain(det, frames) -> dict:
             err = max(int((g.long() - r.long()).abs().max())
                       for g, r in zip(got, ref))
             max_err = max(max_err, err)
-            log(f"walk {name:14s} {compose:9s}: max |kernel - plain| = "
+            log(f"walk {name:20s} {compose:9s}: max |kernel - plain| = "
                 f"{err}")
             if err != 0:
                 raise RuntimeError(f"walk kernel != plain on {name} "
                                    f"({compose})")
+    log(f"coverage: all {len(WALK_INSTANCES)} kernel instances checked, "
+        f"lines in one piece and in several for 4, 8 and 16 mixtures")
     a = real_big
-    load_ns = load_latency_ns()
+    flush = l2_flush()
+
+    def flush_then_sync():
+        flush()
+        torch.cuda.synchronize()
+
+    def flush_then_busy():
+        flush()
+        busy()
+
+    load_ns = load_latency_ns(1 << 22)
+    miss_ns = load_latency_ns(1 << 25, flush=flush)
     bound = walk_bound(a, plain["path-largest", det.compose], det.compose,
-                       load_ns)
-    kernel_ms = cuda_ms(lambda: call_walk(walk.walk_tree, a, det.compose),
-                        reps=50, warmup=5)
+                       load_ns, miss_ns)
+    run = lambda: call_walk(walk.walk_tree, a, det.compose)  # noqa: E731
+    # events around the wrapper call, as earlier versions of this script
+    # timed it: the host's time to reach the launch counts
+    kernel_ms = cuda_ms(run, reps=50, warmup=5)
+    cold_ms = cuda_ms(run, reps=50, warmup=5, pre=flush_then_sync)
+    # a device spin ahead of the first event hides the host: the kernel
+    device_ms = cuda_ms(run, reps=50, warmup=5, pre=busy)
+    device_cold_ms = cuda_ms(run, reps=50, warmup=5, pre=flush_then_busy)
     plain_ms = cuda_ms(lambda: call_walk(walk.walk_tree_plain, a,
                                          det.compose), reps=10)
-    log(f"walk at the largest group ({det.compose}): kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
-        f"({bound['bytes']} B needed, {bound['flops']} flop)")
-    log(f"walk terms of this design: dependent chain (P-1)*3 loads at "
-        f"{load_ns:.1f} ns = {bound['latency_ms']:.4f} ms; gathered "
+    log(f"walk at the largest group ({det.compose}), events around the "
+        f"call: kernel {kernel_ms:.4f} ms with the L2 warm, {cold_ms:.4f} "
+        f"ms with it flushed; plain {plain_ms:.4f} ms")
+    log(f"walk at the largest group, the host hidden by a device spin: "
+        f"kernel {device_ms:.4f} ms with the L2 warm, {device_cold_ms:.4f} "
+        f"ms with it flushed; bound {bound['bound_ms']:.4f} ms by "
+        f"{bound['bound_by']} ({bound['bytes']} B needed, "
+        f"{bound['flops']} flop)")
+    log(f"walk terms of this design: dependent chain depth {bound['depth']}"
+        f" x 2 loads at {load_ns:.1f} ns (L2 hit) = "
+        f"{bound['latency_ms']:.4f} ms, at {miss_ns:.1f} ns (L2 miss) = "
+        f"{bound['latency_cold_ms']:.4f} ms; gathered "
         f"{bound['gathered_bytes']} B = {bound['gathered_ms']:.4f} ms")
-    return dict(max_abs_err=max_err, kernel_ms=kernel_ms,
-                plain_ms=plain_ms, ngroups=ngroups, load_ns=load_ns, **bound)
+    # the DP's W-minor store of tmp at this group: one permuted copy
+    src = a["tmp"].contiguous()
+    copy_ms = cuda_ms(lambda: src.transpose(-1, -2).contiguous(), reps=10,
+                      pre=busy)
+    log(f"DP's W-minor copy of tmp at the largest group "
+        f"({src.numel() * 4} B): {copy_ms:.4f} ms")
+    return dict(max_abs_err=max_err, kernel_ms=kernel_ms, cold_ms=cold_ms,
+                device_ms=device_ms, device_cold_ms=device_cold_ms,
+                plain_ms=plain_ms, ngroups=ngroups, load_ns=load_ns,
+                miss_ns=miss_ns, **bound)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -555,9 +699,14 @@ def main() -> int:
         "launches": launches, "max_abs_err": kern["max_abs_err"],
         "equal": kern["max_abs_err"] == 0,
         "ms": kern["kernel_ms"], "kernel_ms": kern["kernel_ms"],
-        "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"], "latency_ms": kern["latency_ms"],
-        "load_ns": kern["load_ns"], "library_ms": None}]}))
+        "ms_cold": kern["cold_ms"], "device_ms": kern["device_ms"],
+        "device_ms_cold": kern["device_cold_ms"],
+        "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
+        "depth": kern["depth"], "latency_ms": kern["latency_ms"],
+        "latency_cold_ms": kern["latency_cold_ms"],
+        "load_ns": kern["load_ns"], "miss_ns": kern["miss_ns"],
+        "library_ms": None}]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

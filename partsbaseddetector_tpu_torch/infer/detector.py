@@ -165,8 +165,9 @@ def dp_backtrack_bucket(bucket, pdfs, tsizes, scales,
                 X, Y, Mm = walk(
                     res.scores, res.tmp, xs, ys, mv, comp.defw,
                     comp.anchor.to(torch.float32), comp.bias,
-                    torch.as_tensor(packed.parent_static[c],
-                                    dtype=torch.int32, device=dev),
+                    # on the host: the walk reads the tree without a sync
+                    torch.tensor(packed.parent_static[c],
+                                 dtype=torch.int32),
                     compose)
             with stage("seeds+sort"):
                 cands = argmax_ops._walked_candidates(

@@ -32,7 +32,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C signatures: name -> (argtypes, restype)
 SIGNATURES = {
-    "pbd_walk_tree": ([_P] * 12 + [_I] * 7 + [_P], _I),
+    "pbd_walk_tree": ([_P] * 13 + [_I] * 8 + [_P], _I),
     "pbd_chase": ([_P, _I, _P, _P], _I),
 }
 

@@ -149,8 +149,7 @@ def backtrack_levels(res: DPResult, comp: PackedComponent,
     X, Y, Mm = WALKS[walk_impl](
         res.scores, res.tmp, xs, ys, mv, comp.defw,
         comp.anchor.to(torch.float32), comp.bias,
-        torch.as_tensor(parent_static, dtype=torch.int32, device=dev),
-        compose)
+        torch.tensor(parent_static, dtype=torch.int32), compose)
     return _walked_candidates(X, Y, Mm, topv, valid, comp, scales, k,
                               component_index, levels)
 

@@ -31,7 +31,9 @@ class DPResult(NamedTuple):
     rootv: torch.Tensor    # (L, H, W) root score map (bias added, maxed)
     rooti: torch.Tensor    # (L, H, W) int32 best root mixture
     scores: torch.Tensor   # (L, P, M, H, W) accumulated DT inputs per part
-    tmp: torch.Tensor      # (L, P, M, H, W) x-pass maxima (part 0: zero)
+    tmp: torch.Tensor      # (L, P, M, H, W) x-pass maxima (part 0: zero),
+    #                        stored W-minor: tmp.transpose(-1, -2) is
+    #                        contiguous
 
 
 def _inbounds(H: int, W: int, true_size: torch.Tensor) -> torch.Tensor:
@@ -79,20 +81,23 @@ def dp_min_levels(pdfs: torch.Tensor, comp: PackedComponent,
     scores = torch.where(keep, scores, NEG)
 
     parent = comp.parent.long()
-    tmps = [torch.zeros((L, M, H, W), dtype=scores.dtype,
-                        device=scores.device)] * P
+    # every part's x-pass maxima, written in place; part 0 has none
+    tmp = torch.empty_like(scores)
+    tmp[:, 0].zero_()
     for p in range(P - 1, 0, -1):
         s = scores[:, p]                               # (L, M, H, W)
         w = comp.defw[p]                               # (M, 4)
         anc = comp.anchor[p]                           # (M, 2)
-        tmp = dt_max_x(s, w[:, 0], w[:, 1], anc[:, 0])
-        sdt = dt_max_y(tmp, w[:, 2], w[:, 3], anc[:, 1])
+        dt_max_x(s, w[:, 0], w[:, 1], anc[:, 0], out=tmp[:, p])
+        sdt = dt_max_y(tmp[:, p], w[:, 2], w[:, 3], anc[:, 1])
         # child->parent mixture-pair bias, max over child mixtures
         weighted = sdt[:, None] + comp.bias[p].T[None, :, :, None, None]
         maxv = weighted.amax(dim=2)                    # (L, Mp, H, W)
         scores.index_add_(1, parent[p:p + 1], maxv[:, None])
-        tmps[p] = tmp
-    tmp = torch.stack(tmps, dim=1)
+    # stored W-minor, so that a column tmp[l, p, m, :, x] is contiguous
+    # for the walk kernel (ops/walk.py): one permuted copy, which costs
+    # the card less than x passes storing W-minor themselves
+    tmp = tmp.transpose(-1, -2).contiguous().transpose(-1, -2)
 
     # root: add the scalar root bias to every root mixture and max
     # (reference: src/DynamicProgram.cpp:162-171)

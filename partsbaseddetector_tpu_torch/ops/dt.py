@@ -26,18 +26,19 @@ def _param(v, like: torch.Tensor) -> torch.Tensor:
     return v[..., None, None]
 
 
-def dt_max_x(src: torch.Tensor, w0, w1, ax) -> torch.Tensor:
+def dt_max_x(src: torch.Tensor, w0, w1, ax, out=None) -> torch.Tensor:
     """Max-only x pass over (..., H, W) maps:
     out[..., h, q] = max_cx src[..., h, cx] - w0 d^2 - w1 d,
     d = q + ax - cx.  w0, w1, ax: scalars or tensors broadcasting over
-    src's leading dims (e.g. one value per mixture)."""
+    src's leading dims (e.g. one value per mixture).  out: optional
+    tensor of src's shape to write the result into."""
     n = src.shape[-1]
     q = torch.arange(n, dtype=src.dtype, device=src.device)[None, :]
     cx = torch.arange(n, dtype=src.dtype, device=src.device)[:, None]
     d = q + _param(ax, src) - cx                          # (..., Cx, Q)
     pen = -_param(w0, src) * d * d - _param(w1, src) * d
     cand = src[..., :, :, None] + pen[..., None, :, :]    # (..., H, Cx, Q)
-    return cand.amax(dim=-2)
+    return torch.amax(cand, dim=-2, out=out)
 
 
 def dt_max_y(src: torch.Tensor, w2, w3, ay) -> torch.Tensor:

@@ -9,9 +9,17 @@ root-to-leaf loop over ops/dp.walk_children (argmax.backtrack's walk).
 The two are bit-identical: the kernel rounds every operation of the
 candidate expression as eager PyTorch does, and its argmaxes are
 first-wins.
+
+The kernel walks the tree one depth at a time (``depth_layers``) and
+reads ``tmp`` stored W-minor, so that a column is contiguous:
+ops/dp.dp_min_levels returns it so, and ``walk_tree`` refuses any other
+storage on CUDA rather than copy it.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Sequence, Tuple, Union
 
 import torch
 
@@ -43,6 +51,42 @@ def walk_tree_plain(scores, tmp, xs, ys, mv, defw, anchor, bias, parent,
             torch.stack(mvv, dim=1))
 
 
+def depth_layers(parent: Union[Sequence[int], torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The parts of a tree in depth order, the kernel's schedule.
+
+    parent: (P,) with parent[p] < p for p > 0 (parent[0], the root's, is
+    ignored).  Returns (order (P,), offsets (depth + 2,)), int32 on the
+    CPU: layer d is order[offsets[d]:offsets[d + 1]], its parts
+    ascending; layer 0 is the root alone."""
+    par = parent.tolist() if isinstance(parent, torch.Tensor) else parent
+    depth = [0] * len(par)
+    for p in range(1, len(par)):
+        if not 0 <= par[p] < p:
+            raise ValueError(f"parent[{p}] = {par[p]}: a part's parent "
+                             f"must precede it")
+        depth[p] = depth[par[p]] + 1
+    order = sorted(range(len(par)), key=lambda p: (depth[p], p))
+    counts = [0] * (max(depth, default=0) + 1)
+    for d in depth:
+        counts[d] += 1
+    offsets = [0]
+    for n in counts:
+        offsets.append(offsets[-1] + n)
+    return (torch.tensor(order, dtype=torch.int32),
+            torch.tensor(offsets, dtype=torch.int32))
+
+
+@functools.lru_cache(maxsize=64)
+def _layer_table(parent: Tuple[int, ...], device: torch.device):
+    """(table, nlayers) for the kernel: table is parent, then
+    depth_layers' offsets, then its order, int32 on ``device``."""
+    order, offsets = depth_layers(parent)
+    table = torch.cat([torch.tensor(parent, dtype=torch.int32), offsets,
+                       order]).to(device)
+    return table, offsets.numel() - 1
+
+
 def _check(name, t, dtype, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -51,29 +95,14 @@ def _check(name, t, dtype, shape, device):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
 
 
-def walk_tree(scores: torch.Tensor, tmp: torch.Tensor, xs: torch.Tensor,
-              ys: torch.Tensor, mv: torch.Tensor, defw: torch.Tensor,
-              anchor: torch.Tensor, bias: torch.Tensor,
-              parent: torch.Tensor, compose: str = "reference"):
-    """Fused walk for one (bucket, group, component).
-
-    scores/tmp: (L, P, M, H, W) f32 (DPResult fields); xs/ys/mv: (L, K)
-    int32 root seeds; defw (P, M, 4) f32; anchor (P, M, 2) f32; bias
-    (P, M, M) f32; parent (P,) int32, parent[p] < p.  Returns (X, Y, Mm)
-    each (L, P, K) int32 (part 0 = the seeds)."""
-    global LAUNCHES
-    if scores.device.type == "cpu":
-        return walk_tree_plain(scores, tmp, xs, ys, mv, defw, anchor,
-                               bias, parent, compose)
-    if scores.device.type != "cuda":
-        raise ValueError(f"walk_tree runs on CUDA or the CPU, not "
-                         f"{scores.device}")
-    if compose not in _COMPOSE:
-        raise ValueError(compose)
+def check_walk_args(scores, tmp, xs, ys, mv, defw, anchor, bias, parent):
+    """Raise unless the arguments are what the kernel takes: devices,
+    dtypes and shapes as walk_tree documents them; every tensor
+    contiguous except tmp, which must be stored W-minor
+    (tmp.transpose(-1, -2) contiguous); the maps 8-byte aligned; parent
+    on the CPU or on the maps' device."""
     L, P, M, H, W = scores.shape
     K = xs.shape[-1]
     dev = scores.device
@@ -84,10 +113,51 @@ def walk_tree(scores: torch.Tensor, tmp: torch.Tensor, xs: torch.Tensor,
             ("xs", xs, i32, (L, K)), ("ys", ys, i32, (L, K)),
             ("mv", mv, i32, (L, K)), ("defw", defw, f32, (P, M, 4)),
             ("anchor", anchor, f32, (P, M, 2)),
-            ("bias", bias, f32, (P, M, M)), ("parent", parent, i32, (P,))):
+            ("bias", bias, f32, (P, M, M))):
         _check(name, t, dtype, shape, dev)
+        if name == "tmp":
+            if not t.transpose(-1, -2).is_contiguous():
+                raise ValueError(
+                    "tmp is not stored W-minor: the kernel reads "
+                    "tmp.transpose(-1, -2) as a contiguous (L, P, M, W, H) "
+                    "tensor (ops/dp.dp_min_levels returns tmp so)")
+        elif not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+        if name in ("scores", "tmp") and t.data_ptr() % 8:
+            raise ValueError(f"{name} is not 8-byte aligned")
+    _check("parent", parent, i32, (P,),
+           parent.device if parent.device.type == "cpu" else dev)
+
+
+def walk_tree(scores: torch.Tensor, tmp: torch.Tensor, xs: torch.Tensor,
+              ys: torch.Tensor, mv: torch.Tensor, defw: torch.Tensor,
+              anchor: torch.Tensor, bias: torch.Tensor,
+              parent: torch.Tensor, compose: str = "reference"):
+    """Fused walk for one (bucket, group, component).
+
+    scores/tmp: (L, P, M, H, W) f32 (DPResult fields; on CUDA tmp stored
+    W-minor, as dp_min_levels returns it); xs/ys/mv: (L, K) int32 root
+    seeds; defw (P, M, 4) f32; anchor (P, M, 2) f32; bias (P, M, M) f32;
+    parent (P,) int32, parent[p] < p, on the CPU (the kernel's layer
+    table is built from it on the host, once per tree and device) or on
+    the maps' device (then read back, which waits for the device).
+    Returns (X, Y, Mm) each (L, P, K) int32 (part 0 = the seeds)."""
+    global LAUNCHES
+    if scores.device.type == "cpu":
+        return walk_tree_plain(scores, tmp, xs, ys, mv, defw, anchor, bias,
+                               parent, compose)
+    if scores.device.type != "cuda":
+        raise ValueError(f"walk_tree runs on CUDA or the CPU, not "
+                         f"{scores.device}")
+    if compose not in _COMPOSE:
+        raise ValueError(compose)
+    check_walk_args(scores, tmp, xs, ys, mv, defw, anchor, bias, parent)
+    L, P, M, H, W = scores.shape
+    K = xs.shape[-1]
+    dev = scores.device
+    table, nlayers = _layer_table(tuple(parent.tolist()), dev)
     lib = _build.load_library()
-    X = torch.empty((L, P, K), dtype=i32, device=dev)
+    X = torch.empty((L, P, K), dtype=torch.int32, device=dev)
     Y = torch.empty_like(X)
     Mm = torch.empty_like(X)
     if L == 0 or K == 0:
@@ -97,9 +167,10 @@ def walk_tree(scores: torch.Tensor, tmp: torch.Tensor, xs: torch.Tensor,
         rc = lib.pbd_walk_tree(
             scores.data_ptr(), tmp.data_ptr(), xs.data_ptr(),
             ys.data_ptr(), mv.data_ptr(), defw.data_ptr(),
-            anchor.data_ptr(), bias.data_ptr(), parent.data_ptr(),
-            X.data_ptr(), Y.data_ptr(), Mm.data_ptr(),
-            L, P, M, H, W, K, _COMPOSE[compose], stream)
+            anchor.data_ptr(), bias.data_ptr(), table.data_ptr(),
+            table.data_ptr() + 4 * P, X.data_ptr(), Y.data_ptr(),
+            Mm.data_ptr(), L, P, M, H, W, K, nlayers, _COMPOSE[compose],
+            stream)
     if rc != 0:
         raise RuntimeError(f"walk kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

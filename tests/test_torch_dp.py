@@ -57,6 +57,24 @@ def test_dt_passes(shape):
         **TOL)
 
 
+@pytest.mark.parametrize("shape", [(3, 9, 13), (4, 17, 11)])
+def test_dt_max_x_out(shape):
+    """The x pass into out= (a part's slice of a buffer, as the DP writes
+    tmp): the same floats as the returned map, the rest of the buffer
+    untouched."""
+    rng = np.random.default_rng(shape[2])
+    src = rng.standard_normal((2,) + shape).astype(np.float32)
+    w, anc = _weights(rng, shape[0])
+    s_t = torch.from_numpy(src)
+    w_t, a_t = torch.from_numpy(w), torch.from_numpy(anc)
+    buf = torch.full((2, 3) + shape, float("nan"))
+    got = dt_t.dt_max_x(s_t, w_t[:, 0], w_t[:, 1], a_t[:, 0], out=buf[:, 1])
+    assert got.data_ptr() == buf[:, 1].data_ptr()
+    assert torch.equal(buf[:, 1], dt_t.dt_max_x(s_t, w_t[:, 0], w_t[:, 1],
+                                                a_t[:, 0]))
+    assert torch.isnan(buf[:, 0]).all() and torch.isnan(buf[:, 2]).all()
+
+
 @pytest.mark.parametrize("compose", ["reference", "correct"])
 @pytest.mark.parametrize("maker,hw", [("tiny", (10, 13)),
                                       ("person_like", (12, 16))])
@@ -73,6 +91,8 @@ def test_dp_min_levels(maker, hw, compose):
     got = dp_t.dp_min_levels(torch.from_numpy(pdfs), pt.components[0],
                              compose, true_sizes=torch.from_numpy(sizes))
     assert got.rooti.dtype == torch.int32
+    # tmp is stored W-minor for the walk kernel (a column contiguous)
+    assert got.tmp.transpose(-1, -2).is_contiguous()
     np.testing.assert_array_equal(got.rooti.numpy(), np.asarray(ref.rooti))
     for f in ("rootv", "scores", "tmp"):
         a, b = getattr(got, f).numpy(), np.asarray(getattr(ref, f))

@@ -61,11 +61,20 @@ CASES = [("tiny", 3, 7, 9, 8, 0, False),
          ("tiny", 2, 5, 6, 10, 4, True)]
 
 
+def _case_id(c):
+    return f"{c[0]}-{'ties' if c[6] else 'rand'}"
+
+
+# w_minor: tmp stored as the DP stores it for the kernel, (L, P, M, W, H)
+# contiguous, seen through its (L, P, M, H, W) transpose
+WALK_CASES = [(c, False) for c in CASES] + [(c, True) for c in CASES]
+
+
 @pytest.mark.parametrize("compose", ["reference", "correct"])
-@pytest.mark.parametrize("case", CASES,
-                         ids=[f"{c[0]}-{'ties' if c[6] else 'rand'}"
-                              for c in CASES])
-def test_walk_plain_matches_pallas_interpret(case, compose):
+@pytest.mark.parametrize("case,w_minor", WALK_CASES,
+                         ids=[_case_id(c) + ("-wminor" if w else "")
+                              for c, w in WALK_CASES])
+def test_walk_plain_matches_pallas_interpret(case, w_minor, compose):
     _, _, a, s = _case(*case)
     ref = walk_tree_pallas(
         jnp.asarray(a["scores"]), jnp.asarray(a["tmp"]),
@@ -74,6 +83,11 @@ def test_walk_plain_matches_pallas_interpret(case, compose):
         jnp.asarray(a["bias"]), jnp.asarray(a["parent"]),
         compose=compose, interpret=True)
     t = {k: torch.from_numpy(v) for k, v in {**a, **s}.items()}
+    if w_minor:
+        t["tmp"] = torch.from_numpy(np.ascontiguousarray(
+            a["tmp"].swapaxes(-1, -2))).transpose(-1, -2)
+        assert t["tmp"].transpose(-1, -2).is_contiguous()
+        assert torch.equal(t["tmp"], torch.from_numpy(a["tmp"]))
     args = (t["scores"], t["tmp"], t["xs"], t["ys"], t["mv"], t["defw"],
             t["anchor"], t["bias"], t["parent"], compose)
     before = walk_t.LAUNCHES
@@ -94,8 +108,7 @@ XLA_CASES = [(CASES[0], "reference"), (CASES[0], "correct"),
 
 
 @pytest.mark.parametrize("case,compose", XLA_CASES,
-                         ids=[f"{c[0]}-{'ties' if c[6] else 'rand'}-{m}"
-                              for c, m in XLA_CASES])
+                         ids=[f"{_case_id(c)}-{m}" for c, m in XLA_CASES])
 def test_backtrack_levels_matches_xla_walk(case, compose):
     maker, L, H, W, K, seed, ties = case
     jp, pt, a, _ = _case(*case)
@@ -169,3 +182,87 @@ def test_sort_candidates_stable_and_batched():
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(out, f)[0].numpy(),
                                       np.asarray(getattr(ref, f)))
+
+
+def _random_parent(seed):
+    rng = np.random.default_rng(seed)
+    P = int(rng.integers(1, 80))
+    return [0] + [int(rng.integers(0, p)) for p in range(1, P)]
+
+
+TREES = ([("tiny", None), ("person_like", None), ("face_like", None)]
+         + [("random", seed) for seed in range(20)])
+
+
+@pytest.mark.parametrize("maker,seed", TREES,
+                         ids=[m if s is None else f"{m}-{s}"
+                              for m, s in TREES])
+def test_depth_layers(maker, seed):
+    """The kernel's schedule: every part once, each in the layer after
+    its parent's, parts ascending within a layer, depth + 1 layers."""
+    if seed is None:
+        jp = tree_jax.pack_model(getattr(syn_jax, maker)())
+        parent = list(jp.parent_static[0])
+    else:
+        parent = _random_parent(seed)
+    P = len(parent)
+    depth = [0] * P
+    for p in range(1, P):
+        depth[p] = depth[parent[p]] + 1
+    order, offsets = walk_t.depth_layers(torch.tensor(parent,
+                                                      dtype=torch.int32))
+    assert order.dtype == offsets.dtype == torch.int32
+    order, offsets = order.tolist(), offsets.tolist()
+    assert sorted(order) == list(range(P))
+    assert len(offsets) - 1 == max(depth) + 1
+    assert offsets[0] == 0 and offsets[-1] == P
+    assert order[offsets[0]:offsets[1]] == [0]
+    layer_of = {}
+    for d in range(len(offsets) - 1):
+        layer = order[offsets[d]:offsets[d + 1]]
+        assert layer and layer == sorted(layer)
+        layer_of.update({p: d for p in layer})
+    for p in range(1, P):
+        assert layer_of[p] == layer_of[parent[p]] + 1
+    table, nlayers = walk_t._layer_table(tuple(parent),
+                                         torch.device("cpu"))
+    assert nlayers == max(depth) + 1
+    assert table.tolist() == parent + offsets + order
+    if maker == "person_like":
+        assert [offsets[d + 1] - offsets[d] for d in range(nlayers)] == \
+            [1, 4, 5, 3, 2, 2, 2, 2, 1, 1, 1, 1, 1]
+
+
+def test_depth_layers_refuses_a_child_before_its_parent():
+    with pytest.raises(ValueError, match="precede"):
+        walk_t.depth_layers([0, 2, 0])
+
+
+def test_check_walk_args_wants_w_minor_tmp():
+    """The kernel's argument check (walk_tree runs it on CUDA): tmp
+    stored W-minor passes, any other storage raises, nothing is
+    copied."""
+    _, _, a, s = _case("tiny", 2, 5, 6, 4, 3)
+    t = {k: torch.from_numpy(v) for k, v in {**a, **s}.items()}
+    tmp_c = t.pop("tmp")
+    tmp_w = tmp_c.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+    def check(tmp, **over):
+        kw = {**t, **over}
+        walk_t.check_walk_args(kw["scores"], tmp, kw["xs"], kw["ys"],
+                               kw["mv"], kw["defw"], kw["anchor"],
+                               kw["bias"], kw["parent"])
+
+    check(tmp_w)
+    with pytest.raises(ValueError, match="W-minor"):
+        check(tmp_c)
+    # a view into a wider W-minor buffer: columns contiguous, planes not
+    wide = torch.zeros(tmp_c.shape[:3] + (tmp_c.shape[4] + 1,
+                                          tmp_c.shape[3]))
+    with pytest.raises(ValueError, match="W-minor"):
+        check(wide.transpose(-1, -2)[..., :tmp_c.shape[4]])
+    with pytest.raises(ValueError, match="scores is not contiguous"):
+        check(tmp_w, scores=t["scores"].transpose(-1, -2).contiguous()
+              .transpose(-1, -2))
+    with pytest.raises(TypeError, match="parent"):
+        check(tmp_w, parent=t["parent"].long())
