@@ -35,8 +35,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      device ms (CUDA events at stage boundaries), peak device memory,
      and one batch under torch.profiler: the device's busy and idle
      share and the kernels that take the most device time;
-  7. the kernels line (JSON), the card line, then the last line
-     {"ok": true, "device": {...}}.
+  7. the slice-3 paths, each path that ends in the walk kernel with the
+     kernel's launch count set to 0 just before it and read just after
+     (expected: one launch per dp group and component), ms/frame and
+     peak device memory for each:
+     (a) person-26 with shared filter ids (aliased_person), B=8: valid
+         Candidates, kernel walk == plain walk end to end and on the
+         aliased DP's outputs at the largest group, stages 3-4 on the
+         card == on the CPU from the same responses at 120x160;
+     (b) depth pruning, B=8, seeded depths: all-zero depths give the
+         main path's Candidates, a depth implausible at every level
+         leaves none valid;
+     (c) the masked search on one frame, seeded masks: kernel walk ==
+         plain walk;
+     (d) the FFT engine, B=8: the cross-engine contract against the
+         spatial engine on every frame, card vs CPU at 120x160;
+     (e) pyramid_features: card vs CPU at 120x160, atol 1e-4;
+     (f) MultiResDetector on one frame (root one octave coarser than
+         its parts): shapes, order, card vs CPU at 120x160;
+     (g) paint_nms, part_nms and grid_nms on one frame of the thresh
+         -1e9 Candidates (a root score map for grid_nms): card == CPU;
+  8. the kernels line (JSON; launches per path beside the main path's),
+     the card line, then the last line {"ok": true, "device": {...}}.
 
 It imports torch, numpy and the port only.
 """
@@ -151,8 +171,10 @@ def walk_inputs_from_path(det, frames, group_index: int):
                         det.compose, true_sizes=gsizes)
     _, _, xs, ys, mv = _root_seeds(res.rootv, res.rooti, packed.thresh,
                                    det.k_per_level, gsizes)
-    return walk_args(res.scores, res.tmp, xs, ys, mv, comp,
-                     packed.parent_static[0])
+    a = walk_args(res.scores, res.tmp, xs, ys, mv, comp,
+                  packed.parent_static[0])
+    a["rootv"] = res.rootv          # the group's root score maps
+    return a
 
 
 def walk_args(scores, tmp, xs, ys, mv, comp, parent_static):
@@ -452,22 +474,26 @@ def phase_kernel_vs_plain(det, frames) -> dict:
     return dict(max_abs_err=max_err, kernel_ms=kernel_ms, cold_ms=cold_ms,
                 device_ms=device_ms, device_cold_ms=device_cold_ms,
                 plain_ms=plain_ms, ngroups=ngroups, load_ns=load_ns,
-                miss_ns=miss_ns, **bound)
+                miss_ns=miss_ns, rootv=a["rootv"][0], **bound)
 
 
 # ---------------------------------------------------------------- phase 4
-def check_candidates(c, nlevels: int, P: int) -> None:
+def check_candidates(c, nlevels: int, P: int, batch=None) -> None:
+    """Shapes (batch, nlevels*K, ...) (batch: BATCH unless given),
+    finite valid scores, and per frame valid entries first, sorted by
+    score."""
+    batch = BATCH if batch is None else batch
     n = nlevels * K
-    want = {"score": (BATCH, n), "valid": (BATCH, n),
-            "component": (BATCH, n), "level": (BATCH, n),
-            "boxes": (BATCH, n, P, 4), "loc": (BATCH, n, P, 3)}
+    want = {"score": (batch, n), "valid": (batch, n),
+            "component": (batch, n), "level": (batch, n),
+            "boxes": (batch, n, P, 4), "loc": (batch, n, P, 3)}
     for f, shape in want.items():
         got = tuple(getattr(c, f).shape)
         if got != shape:
             raise RuntimeError(f"{f} has shape {got}, expected {shape}")
     if not torch.isfinite(c.score[c.valid]).all():
         raise RuntimeError("non-finite score on a valid candidate")
-    for b in range(BATCH):
+    for b in range(batch):
         v = c.valid[b]
         nv = int(v.sum())
         if not v[:nv].all():
@@ -522,41 +548,62 @@ def phase_main_path(det, frames, ngroups: int):
                           dtype=torch.uint8)
     m8 = synthetic.person_like()
     m8.thresh = -1e9
-    on_card = Detector(m8, k_per_level=8, device="cuda").detect_raw(small)
+    det8 = Detector(m8, k_per_level=8, device="cuda")
+    on_card = det8.detect_raw(small)
     on_cpu = Detector(m8, k_per_level=8, device="cpu").detect_raw(small)
-    contract_vs_cpu(on_card, on_cpu, 8)
-    return cands, launches
+    contract_vs_cpu(on_card, on_cpu, 8, det8.plan_for(small.shape).levels)
+    return cands, launches, all_c
 
 
-def contract_vs_cpu(a, b, k: int) -> None:
+def contract_vs_cpu(a, b, k: int, levels,
+                    what: str = "card vs CPU at 120x160",
+                    same_order: bool = True) -> None:
+    """The cross-engine contract of tests/test_native_parity.py between
+    two frames' Candidates: per plan level (``levels``, the PyramidPlan
+    levels that hold roots), the root keys (x, y) of a's top-k inside
+    the level's true feature size found in b's, against min(k, h*w) of
+    that size from the plan, >= 0.9; PCK(1 cell) >= 0.99 and exact
+    parts >= 0.9 over the matched candidates, median score difference
+    < 1e-4.  same_order: the level fields must also be equal slot for
+    slot (two devices of one engine sort alike; two engines may swap
+    near-equal scores)."""
     la, lb = a.loc.cpu().numpy(), b.loc.cpu().numpy()
     sa, sb = a.score.cpu().numpy(), b.score.cpu().numpy()
-    lev = a.level.cpu().numpy()
-    if not np.array_equal(lev, b.level.cpu().numpy()):
-        raise RuntimeError("card vs CPU: level fields differ")
+    lev, levb = a.level.cpu().numpy(), b.level.cpu().numpy()
+    if same_order and not np.array_equal(lev, levb):
+        raise RuntimeError(f"{what}: level fields differ")
     total = matched = exact = close = nparts = 0
     diffs = []
-    for lv in np.unique(lev):
-        sel = np.nonzero(lev == lv)[0]
-        ga = {(int(la[i, 0, 0]), int(la[i, 0, 1])): i for i in sel}
-        gb = {(int(lb[i, 0, 0]), int(lb[i, 0, 1])): i for i in sel}
-        total += k
+
+    def root_keys(loc, lv, th, tw):
+        return {(int(loc[i, 0, 0]), int(loc[i, 0, 1])): i
+                for i in np.nonzero(lv)[0]
+                if loc[i, 0, 0] < tw and loc[i, 0, 1] < th}
+
+    for lvl in levels:
+        th, tw = lvl.featsize
+        ga = root_keys(la, lev == lvl.index, th, tw)
+        gb = root_keys(lb, levb == lvl.index, th, tw)
+        total += min(k, th * tw)
         for key in set(ga) & set(gb):
             i, j = ga[key], gb[key]
             matched += 1
-            diffs.append(abs(float(sa[i]) - float(sb[j])))
+            # equal scores (both -inf on a level's unfilled slots) differ
+            # by 0
+            diffs.append(0.0 if sa[i] == sb[j] else
+                         abs(float(sa[i]) - float(sb[j])))
             dd = np.abs(la[i, :, :2] - lb[j, :, :2])
             nparts += la.shape[1]
             exact += int(((dd == 0).all(1)
                           & (la[i, :, 2] == lb[j, :, 2])).sum())
             close += int((dd.max(1) <= 1).sum())
-    med = float(np.median(diffs))
-    log(f"card vs CPU at 120x160: root keys {matched}/{total}, PCK "
+    med = float(np.median(diffs)) if diffs else float("inf")
+    log(f"{what}: root keys {matched}/{total}, PCK "
         f"{close}/{nparts}, exact parts {exact}/{nparts}, median score "
         f"diff {med:.3g}")
     if not (matched >= 0.9 * total and close >= 0.99 * nparts
             and exact >= 0.9 * nparts and med < 1e-4):
-        raise RuntimeError("card vs CPU: contract not met")
+        raise RuntimeError(f"{what}: contract not met")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -671,6 +718,349 @@ def phase_device_trace(det, frames) -> None:
         log(f"  {us / 1e3:9.3f} ms  {n:6d}x  {name[:90]}")
 
 
+# ---------------------------------------------------------------- phase 7
+# The slice-3 paths.  Each one that ends in the walk kernel is driven
+# with the kernel's launch count set to 0 just before and read just
+# after; comparison runs (plain walk, CPU) are outside those windows.
+
+#: the small frame of the card-vs-CPU checks
+SMALL = (120, 160)
+FIELDS = ("score", "valid", "component", "level", "boxes", "loc")
+
+
+def small_frame() -> torch.Tensor:
+    g = torch.Generator().manual_seed(7)
+    return torch.randint(0, 256, SMALL + (3,), generator=g,
+                         dtype=torch.uint8)
+
+
+def counted(fn):
+    """fn() with the walk kernel's launch count set to 0 just before and
+    read just after; returns (result, launches)."""
+    from partsbaseddetector_tpu_torch.ops import walk
+    torch.cuda.synchronize()
+    walk.LAUNCHES = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, walk.LAUNCHES
+
+
+def expect_launches(what: str, got: int, expected: int) -> None:
+    log(f"{what}: walk kernel launches {got} (expected {expected})")
+    if got != expected:
+        raise RuntimeError(f"{what}: walk launches {got} != {expected}")
+
+
+def wall_ms(fn, reps: int = 3):
+    """Median host ms of fn() ending in a synchronize, over reps runs
+    after a warm one; the peak device memory of those runs, and the
+    memory already allocated when they started."""
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), torch.cuda.max_memory_allocated(), base
+
+
+def report(what: str, fn, frames: int, reps: int = 3) -> None:
+    ms, peak, base = wall_ms(fn, reps)
+    log(f"{what}: {ms / frames:.3f} ms/frame ({ms:.3f} ms a call, median "
+        f"of {reps}, host clock to synchronize); peak device memory {peak} "
+        f"B ({peak / 2**30:.2f} GiB; {base} B held before the calls)")
+
+
+def equal_candidates(a, b, what: str) -> None:
+    for f in FIELDS:
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise RuntimeError(f"{what}: Candidates differ in {f}")
+    log(f"{what}: Candidates equal (all fields)")
+
+
+def expected_launches(det, imshape) -> int:
+    from partsbaseddetector_tpu_torch.infer.detector import _dp_groups
+    plan = det.plan_for(imshape)
+    return (sum(len(_dp_groups(b, det.dp_split)) for b in plan.buckets)
+            * len(det.packed.components))
+
+
+def aliased_person():
+    """person_like() with two kinds of filter sharing within its one
+    component, those of tests/test_aliasing.py: in every non-root part,
+    mixtures 1-3 take mixture 0's filter id; then in the 8 parent-child
+    pairs of parts 1-8, the child's mixture 0 takes its parent's
+    mixture-0 id (ids as person_like() made them)."""
+    from partsbaseddetector_tpu_torch.models import synthetic
+    m = synthetic.person_like()
+    parts = m.components[0].parts
+    own = [p.filterid[0] for p in parts]
+    for part in parts[1:]:
+        for j in range(1, part.nmixtures):
+            part.filterid[j] = part.filterid[0]
+    for q in range(1, 9):
+        parts[q].filterid[0] = own[parts[q].parentid]
+    m.validate()
+    return m
+
+
+def phase_aliased(frames) -> int:
+    """(a) The aliased person-26 at B=8."""
+    from partsbaseddetector_tpu_torch.infer.detector import Detector
+    from partsbaseddetector_tpu_torch.ops import walk
+    m = aliased_person()
+    m.thresh = 0.0
+    det = Detector(m, k_per_level=K, device="cuda")
+    if not det.packed.components[0].aliased:
+        raise RuntimeError("the aliased fixture does not pack as aliased")
+    cands, n = counted(lambda: det.detect_batch_raw(frames))
+    expect_launches(f"aliased person-26, B={BATCH}", n,
+                    expected_launches(det, IMG))
+    P = det.packed.components[0].filterid.shape[0]
+    check_candidates(cands, len(det.plan_for(IMG).levels), P)
+    plain = Detector(m, k_per_level=K, device="cuda", walk_impl="torch")
+    equal_candidates(cands, plain.detect_batch_raw(frames),
+                     "aliased: kernel walk vs plain walk, end to end")
+    a = walk_inputs_from_path(det, frames, 0)
+    for compose in ("reference", "correct"):
+        got = call_walk(walk.walk_tree, a, compose)
+        ref = call_walk(walk.walk_tree_plain, a, compose)
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise RuntimeError(f"aliased: walk kernel != plain ({compose})")
+    log(f"aliased: walk kernel == plain walk (X, Y, Mm bit-equal) on the "
+        f"aliased DP's outputs at the largest group "
+        f"{tuple(a['scores'].shape)}, both compose modes")
+    m8 = aliased_person()
+    m8.thresh = -1e9
+    stages34_card_vs_cpu(m8)
+    report(f"aliased person-26, B={BATCH}",
+           lambda: det.detect_batch_raw(frames), BATCH)
+    return n
+
+
+def stages34_card_vs_cpu(model) -> None:
+    """Stages 3-4 (DP, seeds, walk, sort) on the card and on the CPU
+    from the same stage-2 responses, computed on the CPU at 120x160:
+    Candidates equal.  The aliased fixture needs this in place of the
+    cross-engine contract: each part's four mixtures share one
+    accumulation buffer, so the buffers sum four messages at every
+    depth and scores grow about 4^depth (to about 5e6 at 120x160, where
+    float32 steps by 0.5).  The card's own stage-1-2 responses are held
+    to the CPU's: max |diff| inside the true sizes over max |CPU| at
+    most 1e-5, the rounding of 5x5x32-tap float32 sums summed in
+    another order (800 taps x 2^-24 = 4.8e-5 at worst); the gap between
+    the i-th best scores of stages 3-4 run from each device's own
+    responses is logged beside it: a rounding gap of that size in the
+    responses moves these scores by a few units."""
+    from partsbaseddetector_tpu_torch.infer.detector import (
+        Detector, dp_backtrack_bucket, pyramid_pdfs)
+    from partsbaseddetector_tpu_torch.ops import argmax
+    dets = {d: Detector(model, k_per_level=8, device=d)
+            for d in ("cuda", "cpu")}
+    plan = dets["cpu"].plan_for(SMALL)
+    frame = small_frame()[None]
+    per_bucket = pyramid_pdfs(frame, dets["cpu"].packed, plan)
+    own = pyramid_pdfs(frame.cuda(), dets["cuda"].packed, plan)
+    rel = 0.0
+    for (bucket, ref, _, _), (_, got, _, _) in zip(per_bucket, own):
+        got = got.cpu()
+        diff = scale = 0.0
+        for j, lv in enumerate(bucket.levels):
+            th, tw = lv.featsize
+            r = ref[:, j, :th, :tw]
+            diff = max(diff, float((got[:, j, :th, :tw] - r).abs().max()))
+            scale = max(scale, float(r.abs().max()))
+        rel = max(rel, diff / scale)
+
+    def stages34(det, responses):
+        cands = []
+        for bucket, pdfs, ts, sc in responses:
+            d = det.device
+            cands.extend(dp_backtrack_bucket(
+                bucket, pdfs.to(d), ts.to(d), sc.to(d), det.packed, 8,
+                det.compose, det.dp_split, det.walk_impl))
+        return argmax.sort_candidates(argmax.concat_candidates(cands))
+
+    out = {d: stages34(det, per_bucket) for d, det in dets.items()}
+    equal_candidates(out["cuda"].map(lambda x: x.cpu()), out["cpu"],
+                     f"aliased: stages 3-4 card vs CPU on the same "
+                     f"responses at 120x160 (scores up to "
+                     f"{float(out['cpu'].score.max()):.4g})")
+    sa = stages34(dets["cuda"], own).score.cpu()
+    sb = out["cpu"].score
+    fin = torch.isfinite(sa) & torch.isfinite(sb)
+    log(f"aliased: stage-1-2 responses card vs CPU at 120x160, max |diff| "
+        f"/ max |CPU| {rel:.3g} (limit 1e-5); from each device's own "
+        f"responses, the i-th best scores differ by up to "
+        f"{float((sa - sb)[fin].abs().max()):.4g}")
+    if not rel <= 1e-5:
+        raise RuntimeError("aliased: card responses differ from the CPU's "
+                           "beyond 1e-5 relative")
+
+
+def phase_depth(det, frames, cands) -> int:
+    """(b) Depth pruning at B=8, on the main path's model and frames."""
+    from partsbaseddetector_tpu_torch.infer.detector import (DepthPrune,
+                                                             Detector)
+    ddet = Detector(det.model, k_per_level=K, device="cuda",
+                    depth_prune=DepthPrune(part_width_m=0.4, fx=525.0,
+                                           tol=0.5))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    # 0.5-8 m, a tenth unknown (0)
+    depths = (torch.rand((BATCH,) + IMG, generator=g, device="cuda") * 7.5
+              + 0.5)
+    depths[torch.rand(depths.shape, generator=g, device="cuda") < 0.1] = 0.0
+    pruned, n = counted(lambda: ddet.detect_batch_raw(frames,
+                                                      depths=depths))
+    expect_launches(f"depth, B={BATCH}", n, expected_launches(ddet, IMG))
+    P = det.packed.components[0].filterid.shape[0]
+    check_candidates(pruned, len(det.plan_for(IMG).levels), P)
+    log(f"depth: valid candidates per frame {pruned.valid.sum(1).tolist()}"
+        f" (without depth {cands.valid.sum(1).tolist()})")
+    zero = ddet.detect_batch_raw(frames, depths=torch.zeros_like(depths))
+    equal_candidates(zero, cands, "depth: all-zero depths vs no depth map")
+    far = ddet.detect_batch_raw(frames, depths=torch.full_like(depths, 1e4))
+    if far.valid.any():
+        raise RuntimeError("depth: a depth implausible at every level "
+                           "left a valid candidate")
+    log("depth: a constant 1e4 m depth leaves no valid candidate")
+    report(f"depth, B={BATCH}", lambda: ddet.detect_batch_raw(frames,
+                                                      depths=depths), BATCH)
+    return n
+
+
+def phase_masked(det, frames) -> int:
+    """(c) The masked latent search on one frame, seeded masks."""
+    from partsbaseddetector_tpu_torch.infer.detector import Detector
+    plan = det.plan_for(IMG)
+    P = det.packed.components[0].filterid.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    masks = [torch.rand((len(b.levels), P) + b.feat_pad, generator=g,
+                        device="cuda") < 0.7 for b in plan.buckets]
+    got, n = counted(lambda: det.detect_masked_raw(frames[0], masks))
+    expect_launches("masked, one frame", n, expected_launches(det, IMG))
+    check_candidates(got.map(lambda x: x[None]), len(plan.levels), P, 1)
+    plain = Detector(det.model, k_per_level=K, device="cuda",
+                     walk_impl="torch").detect_masked_raw(frames[0], masks)
+    equal_candidates(got, plain, "masked: kernel walk vs plain walk")
+    report("masked, one frame", lambda: det.detect_masked_raw(frames[0],
+                                                              masks), 1)
+    return n
+
+
+def phase_fft(frames, cands) -> int:
+    """(d) The FFT conv engine at B=8, held to the spatial engine."""
+    from partsbaseddetector_tpu_torch.infer.detector import Detector
+    from partsbaseddetector_tpu_torch.models import synthetic
+    m = synthetic.person_like()
+    m.thresh = 0.0
+    fdet = Detector(m, k_per_level=K, conv_engine="fft", device="cuda")
+    got, n = counted(lambda: fdet.detect_batch_raw(frames))
+    expect_launches(f"fft, B={BATCH}", n, expected_launches(fdet, IMG))
+    P = fdet.packed.components[0].filterid.shape[0]
+    check_candidates(got, len(fdet.plan_for(IMG).levels), P)
+    for b in range(BATCH):
+        contract_vs_cpu(got.map(lambda x: x[b]), cands.map(lambda x: x[b]),
+                        K, fdet.plan_for(IMG).levels,
+                        f"fft vs spatial engine, frame {b}",
+                        same_order=False)
+    m8 = synthetic.person_like()
+    m8.thresh = -1e9
+    small = small_frame()
+    fdet8 = Detector(m8, k_per_level=8, conv_engine="fft", device="cuda")
+    contract_vs_cpu(
+        fdet8.detect_raw(small),
+        Detector(m8, k_per_level=8, conv_engine="fft",
+                 device="cpu").detect_raw(small), 8,
+        fdet8.plan_for(SMALL).levels, "fft: card vs CPU at 120x160")
+    report(f"fft, B={BATCH}", lambda: fdet.detect_batch_raw(frames), BATCH)
+    return n
+
+
+def phase_features() -> None:
+    """(e) pyramid_features, card against CPU at 120x160."""
+    from partsbaseddetector_tpu_torch.infer.detector import Detector
+    from partsbaseddetector_tpu_torch.models import synthetic
+    m = synthetic.person_like()
+    small = small_frame()
+    a = Detector(m, device="cuda").pyramid_features(small)
+    b = Detector(m, device="cpu").pyramid_features(small)
+    if [x.shape for x in a] != [y.shape for y in b]:
+        raise RuntimeError("pyramid_features: shapes differ")
+    err = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+    log(f"pyramid_features: {len(a)} levels, card vs CPU at 120x160 max "
+        f"|diff| {err:.3g} (atol 1e-4)")
+    if not err <= 1e-4:
+        raise RuntimeError("pyramid_features: card vs CPU beyond 1e-4")
+
+
+def multires_person():
+    """person_like() with the root one octave coarser than its 25 other
+    parts: the root's children take anchor ds = 1, their descendants
+    ds = 0 (the root-plus-parts-at-2x layout of Felzenszwalb et al.,
+    PAMI 2010)."""
+    from partsbaseddetector_tpu_torch.models import synthetic
+    parents = [p.parentid for p in synthetic.person_like().components[0]
+               .parts]
+    m = synthetic.person_like(part_ds=[1 if q == 0 else 0
+                                       for q in parents])
+    if m.part_scales(0) != [0] + [1] * 25:
+        raise RuntimeError(f"multires fixture scales {m.part_scales(0)}")
+    return m
+
+
+def phase_multires(frames) -> None:
+    """(f) MultiResDetector on one 640x480 frame."""
+    from partsbaseddetector_tpu_torch.infer.multires import MultiResDetector
+    m = multires_person()
+    m.thresh = -1e9
+    mdet = MultiResDetector(m, k_per_level=K, device="cuda")
+    c = mdet.detect_raw(frames[0])
+    plan = mdet.plan_for(IMG)
+    nroot = sum(len(b.levels) for b in plan.buckets[m.max_scale():])
+    check_candidates(c.map(lambda x: x[None]), nroot, m.components[0].nparts,
+                     1)
+    log(f"multires: {nroot} root levels x K={K} slots, "
+        f"{int(c.valid.sum())} valid; sorted, valid first")
+    m8 = multires_person()
+    m8.thresh = -1e9
+    small = small_frame()
+    mdet8 = MultiResDetector(m8, k_per_level=8, device="cuda")
+    roots = [lv for b in mdet8.plan_for(SMALL).buckets[m8.max_scale():]
+             for lv in b.levels]
+    contract_vs_cpu(
+        mdet8.detect_raw(small),
+        MultiResDetector(m8, k_per_level=8, device="cpu").detect_raw(small),
+        8, roots, "multires: card vs CPU at 120x160")
+    report("multires, one frame", lambda: mdet.detect_raw(frames[0]), 1)
+
+
+def phase_nms(all_c, rootv) -> None:
+    """(g) The three NMS functions on one frame of the main path's
+    thresh -1e9 Candidates, card against CPU."""
+    from partsbaseddetector_tpu_torch.ops import nms
+    c = all_c.map(lambda x: x[0])
+    host = c.map(lambda x: x.cpu())
+    for name, fn in (("paint_nms", lambda x: nms.paint_nms(x, IMG)),
+                     ("part_nms", nms.part_nms)):
+        got, ref = fn(c), fn(host)
+        if not torch.equal(got.valid.cpu(), ref.valid):
+            raise RuntimeError(f"{name}: card != CPU")
+        log(f"{name} on {c.capacity} candidates ({int(c.valid.sum())} "
+            f"valid): {int(got.valid.sum())} kept, card == CPU (valid)")
+        report(name, lambda: fn(c), 1)
+    got, ref = nms.grid_nms(rootv, 3), nms.grid_nms(rootv.cpu(), 3)
+    if not torch.equal(got.cpu(), ref):
+        raise RuntimeError("grid_nms: card != CPU")
+    log(f"grid_nms (sz 3) on a {tuple(rootv.shape)} root score map: "
+        f"{int(got.sum())} maxima, card == CPU")
+    report("grid_nms", lambda: nms.grid_nms(rootv, 3), 1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on "
@@ -688,9 +1078,17 @@ def main() -> int:
     frames = torch.randint(0, 256, (BATCH,) + IMG + (3,), generator=g,
                            device="cuda", dtype=torch.uint8)
     kern = phase_kernel_vs_plain(det, frames)
-    cands, launches = phase_main_path(det, frames, kern["ngroups"])
+    cands, launches, all_c = phase_main_path(det, frames, kern["ngroups"])
     phase_plain_walk_end_to_end(model, frames, cands)
     phase_times(det, frames, smi)
+    paths = {"main": launches}
+    paths["aliased"] = phase_aliased(frames)
+    paths["depth"] = phase_depth(det, frames, cands)
+    paths["masked"] = phase_masked(det, frames)
+    paths["fft"] = phase_fft(frames, cands)
+    phase_features()
+    phase_multires(frames)
+    phase_nms(all_c, kern["rootv"])
     log(json.dumps({"kernels": [{
         "name": "walk_tree", "route": "cuda",
         "source": "partsbaseddetector_tpu_torch/csrc/walk.cu",
@@ -706,7 +1104,7 @@ def main() -> int:
         "depth": kern["depth"], "latency_ms": kern["latency_ms"],
         "latency_cold_ms": kern["latency_cold_ms"],
         "load_ns": kern["load_ns"], "miss_ns": kern["miss_ns"],
-        "library_ms": None}]}))
+        "library_ms": None, "launches_per_path": paths}]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

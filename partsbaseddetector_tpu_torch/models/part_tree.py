@@ -38,8 +38,12 @@ class PackedComponent:
       fsize[p, m]     -> filter rows (box size; the reference uses rows
                          for both x and y — include/Parts.hpp:185-187)
       aliased         -> some filter id is shared by two (part, mixture)
-                         slots of this component (not carried by this
-                         port yet; the detector refuses such models)
+                         slots of this component (ops/dp runs the
+                         filter-keyed DP for it)
+      message_fids[p] -> host copy: the filter ids of part p's parent's
+                         valid mixtures, the buffers its messages are
+                         added to in the filter-keyed DP (() for the
+                         root)
     """
 
     filterid: torch.Tensor     # (P, M) int32
@@ -52,6 +56,7 @@ class PackedComponent:
     root_bias: torch.Tensor    # () f32
     fsize: torch.Tensor        # (P, M) int32
     aliased: bool = False
+    message_fids: Tuple[Tuple[int, ...], ...] = ()
 
     @property
     def nparts(self) -> int:
@@ -84,6 +89,16 @@ class PackedModel:
     @property
     def nfilters(self) -> int:
         return self.bank.shape[3]
+
+
+def message_fids(filterid, parent, nmix) -> Tuple[Tuple[int, ...], ...]:
+    """PackedComponent.message_fids from the (P, M) filter ids, (P,)
+    parents and (P,) mixture counts of one component."""
+    filterid, parent, nmix = (np.asarray(a) for a in (filterid, parent,
+                                                       nmix))
+    return ((),) + tuple(
+        tuple(int(f) for f in filterid[parent[p], :nmix[parent[p]]])
+        for p in range(1, len(parent)))
 
 
 def pack_model(model: PartsModel, device=None) -> PackedModel:
@@ -131,6 +146,7 @@ def pack_model(model: PartsModel, device=None) -> PackedModel:
                 for m in range(part.nmixtures)]
         comps.append(PackedComponent(
             aliased=len(set(fids)) != len(fids),
+            message_fids=message_fids(filterid, parent, nmix),
             filterid=dev(filterid),
             defw=dev(defw),
             anchor=dev(anchor),

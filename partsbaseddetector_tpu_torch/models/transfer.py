@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from partsbaseddetector_tpu_torch.models.part_tree import (PackedComponent,
-                                                           PackedModel)
+                                                           PackedModel,
+                                                           message_fids)
 from partsbaseddetector_tpu_torch.ops.common import resolve_device
 
 #: PackedModel fields that are plain Python values, not arrays
@@ -42,9 +43,12 @@ def packed_from_numpy(arrays: Mapping[str, Any],
     for c in arrays["components"]:
         kw = {f.name: dev(c[f.name])
               for f in dataclasses.fields(PackedComponent)
-              if f.name != "aliased"}
-        comps.append(PackedComponent(aliased=bool(c.get("aliased", False)),
-                                     **kw))
+              if f.name not in ("aliased", "message_fids")}
+        comps.append(PackedComponent(
+            aliased=bool(c.get("aliased", False)),
+            message_fids=message_fids(c["filterid"], c["parent"],
+                                      c["nmix"]),
+            **kw))
     static = {k: arrays[k] for k in _STATIC if k in arrays}
     static["parent_static"] = tuple(tuple(int(v) for v in par)
                                     for par in arrays["parent_static"])

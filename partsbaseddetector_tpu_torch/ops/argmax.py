@@ -97,14 +97,15 @@ def _walked_candidates(X, Y, Mm, topv, valid, comp: PackedComponent,
                        scales, k: int, component_index: int,
                        levels) -> Candidates:
     """Assemble the flat Candidates from walked positions.
-    X/Y/Mm: (L, P, K); topv/valid: (L, K); scales/levels: (L,).
+    X/Y/Mm: (L, P, K); topv/valid: (L, K); levels: (L,); scales: pixels
+    per cell, (L,) or per part (L, P) (multi-resolution models).
     Returns capacity L*k."""
     L, P, K = X.shape
     X = X.transpose(1, 2)               # (L, K, P)
     Y = Y.transpose(1, 2)
     Mm = Mm.transpose(1, 2)
     scale = torch.as_tensor(scales, dtype=torch.float32,
-                            device=X.device)[:, None, None]
+                            device=X.device).reshape(L, 1, -1)
     parts = torch.arange(P, device=X.device)[None, None, :]
     sizes = comp.fsize[parts, Mm.long()]                  # (L, K, P)
     x1 = cv_round((X - 1) * scale)

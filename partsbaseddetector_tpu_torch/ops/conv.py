@@ -1,11 +1,12 @@
 """Mixture filter-bank scoring as one convolution per shape bucket.
 
-Port of partsbaseddetector_tpu/ops/conv.py (spatial engine only).  The
-reference's triple loop of per-filter correlations (reference:
+Port of partsbaseddetector_tpu/ops/conv.py.  The reference's triple
+loop of per-filter correlations (reference:
 src/SpatialConvolutionEngine.cpp:85-123) is one ``F.conv2d`` per bucket:
 feature channels are the input channels and all F mixture filters the
 output channels.  The JAX package leaves this conv to XLA outside any
 Pallas kernel; here it goes to cuDNN, with TF32 off (ops/common.py).
+``conv_bank_fft`` is the frequency-domain engine.
 
 Border semantics: "same"-size responses with the kernel anchored at its
 center (kh//2, kw//2); features beyond the image border read as zero in
@@ -100,3 +101,44 @@ def conv_bank(features: torch.Tensor, bank: torch.Tensor,
                    bank.permute(3, 2, 0, 1).contiguous())
     out = out.permute(0, 2, 3, 1)
     return out[0] if squeeze else out
+
+
+def conv_bank_fft(features: torch.Tensor, bank: torch.Tensor,
+                  true_size=None) -> torch.Tensor:
+    """Frequency-domain variant of conv_bank (port of
+    partsbaseddetector_tpu/ops/conv.py:conv_bank_fft): rfft2 of the
+    occlusion-padded features and of the filter bank, a per-frequency
+    multiply-accumulate over channels against the conjugate kernel
+    spectrum (a correlation), the inverse transform, and the VALID crop.
+    It realizes the intent of the reference's dead
+    FourierConvolutionEngine (src/FourierConvolutionEngine.cpp:118-138).
+    The JAX package computes these FFTs outside any Pallas kernel; here
+    they are torch.fft.
+
+    Same signature and layout as conv_bank.  The channel contraction is
+    one batched complex matmul over the frequencies, (Hp*Wf, L, C) @
+    (Hp*Wf, C, F), so no (L, F, C, Hp, Wf) product is ever formed."""
+    squeeze = features.ndim == 3
+    if squeeze:
+        features = features[None]
+    FH, FW = bank.shape[:2]
+    ay, ax = FH // 2, FW // 2
+    padded = occlusion_pad(features, (ay, FH - 1 - ay, ax, FW - 1 - ax),
+                           true_size)
+    L, Hp, Wp, C = padded.shape
+    s = (Hp, Wp)
+    feat_f = torch.fft.rfft2(padded.permute(0, 3, 1, 2), s=s)   # (L,C,Hp,Wf)
+    bank_f = torch.fft.rfft2(bank.permute(3, 2, 0, 1), s=s)     # (F,C,Hp,Wf)
+    resp_f = torch.matmul(feat_f.permute(2, 3, 0, 1),
+                          bank_f.conj().permute(2, 3, 1, 0))    # (Hp,Wf,L,F)
+    resp = torch.fft.irfft2(resp_f.permute(2, 3, 0, 1), s=s)    # (L,F,Hp,Wp)
+    # output (y, x) is the kernel's top-left at padded (y, x): the
+    # centered-anchor response after the VALID crop
+    out = resp[:, :, :Hp - (FH - 1), :Wp - (FW - 1)].permute(0, 2, 3, 1)
+    return out[0] if squeeze else out
+
+
+#: stage-2 engines by name (partsbaseddetector_tpu/infer/detector.py:42;
+#: the reference wires only the spatial one,
+#: src/PartsBasedDetector.cpp:108-118)
+CONV_ENGINES = {"spatial": conv_bank, "fft": conv_bank_fft}

@@ -52,3 +52,93 @@ def dt_max_y(src: torch.Tensor, w2, w3, ay) -> torch.Tensor:
     pen = -_param(w2, src) * d * d - _param(w3, src) * d
     cand = src[..., None, :, :] + pen[..., :, :, None]    # (..., Py, Cy, Px)
     return cand.amax(dim=-2)
+
+
+# ---------------------------------------------------------------------
+# shifted / strided DT: the multi-resolution message op
+# (partsbaseddetector_tpu/ops/dt.py:168-267; the Matlab detector's
+# matlab/oct/shiftdt.cc)
+# ---------------------------------------------------------------------
+
+def _shiftdt_pass(src: torch.Tensor, a, b, shift, dlen: int, step):
+    """One shifted/strided 1-D max-transform pass along the last axis:
+    dst[..., i] = max_x src[..., x] - a d^2 - b d, d = shift + i*step - x.
+    a, b, shift, step: scalars.  Returns (dst, argmax), each (..., dlen);
+    the argmax resolves ties to the smallest source index."""
+    n = src.shape[-1]
+    dev, dtype = src.device, src.dtype
+
+    def s(v):
+        return torch.as_tensor(v, dtype=dtype, device=dev)
+    q = s(shift) + torch.arange(dlen, dtype=dtype, device=dev) * s(step)
+    d = q[:, None] - torch.arange(n, dtype=dtype, device=dev)[None, :]
+    pen = -s(a) * d * d - s(b) * d                        # (dlen, n)
+    cand = src[..., None, :] + pen                        # (..., dlen, n)
+    dst = cand.amax(dim=-1)
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    rev = torch.where(cand >= dst[..., None], n - 1 - iota,
+                      torch.tensor(-1, dtype=torch.int32, device=dev))
+    idx = (n - 1) - rev.amax(dim=-1)
+    return dst, idx.to(torch.int32)
+
+
+def shiftdt_max_y(src: torch.Tensor, w2, w3, starty, leny: int, step
+                  ) -> torch.Tensor:
+    """Max-only strided y pass: src (..., H, W) ->
+    out[..., i, px] = max_cy src[..., cy, px] - w2 d^2 - w3 d,
+    d = starty + i*step - cy.  w2, w3, starty: scalars or tensors over
+    src's leading dims; step: a scalar."""
+    h = src.shape[-2]
+    py = torch.arange(leny, dtype=src.dtype, device=src.device)[:, None]
+    cy = torch.arange(h, dtype=src.dtype, device=src.device)[None, :]
+    d = _param(starty, src) + py * float(step) - cy       # (..., Py, Cy)
+    pen = -_param(w2, src) * d * d - _param(w3, src) * d
+    cand = src[..., None, :, :] + pen[..., :, :, None]    # (..., Py, Cy, Px)
+    return cand.amax(dim=-2)
+
+
+def shiftdt_max_x(src: torch.Tensor, w0, w1, startx, lenx: int, step
+                  ) -> torch.Tensor:
+    """Max-only strided x pass: src (..., H, W) ->
+    out[..., h, j] = max_cx src[..., h, cx] - w0 d^2 - w1 d,
+    d = startx + j*step - cx."""
+    n = src.shape[-1]
+    q = torch.arange(lenx, dtype=src.dtype, device=src.device)[None, :]
+    cx = torch.arange(n, dtype=src.dtype, device=src.device)[:, None]
+    d = _param(startx, src) + q * float(step) - cx        # (..., Cx, Q)
+    pen = -_param(w0, src) * d * d - _param(w1, src) * d
+    cand = src[..., :, :, None] + pen[..., None, :, :]    # (..., H, Cx, Q)
+    return cand.amax(dim=-2)
+
+
+def shiftdt_max(src: torch.Tensor, w, startx, starty, lenx: int,
+                leny: int, step=1):
+    """Max-only forward pass of :func:`shiftdt` (the multi-resolution
+    DP's message op): the y pass first (the Matlab kernel's order,
+    matlab/oct/shiftdt.cc:97-102), then x.  w: (..., 4).
+
+    Returns (out, tmp): out (..., leny, lenx) is the message on the
+    parent grid; tmp (..., leny, W) the y-pass maxima, which the walk
+    reads to recompute argmaxes at its K points (infer/multires.py)."""
+    w = torch.as_tensor(w, dtype=src.dtype, device=src.device)
+    tmp = shiftdt_max_y(src, w[..., 2], w[..., 3], starty, leny, step)
+    out = shiftdt_max_x(tmp, w[..., 0], w[..., 1], startx, lenx, step)
+    return out, tmp
+
+
+def shiftdt(score: torch.Tensor, w, startx, starty, lenx: int, leny: int,
+            step=1):
+    """Generalized DT on a shifted, subsampled output grid, with argmax
+    tables: child position (starty + i*step, startx + j*step) for parent
+    cell (i, j), i < leny, j < lenx.  score (H, W); w = (w0, w1, w2, w3).
+    The y pass first, then x; the tables composed like the mex kernel
+    (shiftdt.cc:105-111): Iy[i, j] = IyCol[i, Ix[i, j]].
+
+    Returns (out, Ix, Iy), each (leny, lenx); Ix/Iy are child-grid
+    coordinates."""
+    w = torch.as_tensor(w, dtype=score.dtype, device=score.device)
+    tmp_t, iy_t = _shiftdt_pass(score.T, w[2], w[3], starty, leny, step)
+    tmp, iy_col = tmp_t.T, iy_t.T                         # (leny, W)
+    out, ix = _shiftdt_pass(tmp, w[0], w[1], startx, lenx, step)
+    iy = torch.gather(iy_col, 1, ix.long())
+    return out, ix, iy

@@ -61,3 +61,31 @@ def test_conv_bank_per_level_sizes(ksizes, C):
                             torch.from_numpy(bank_np))
     np.testing.assert_allclose(got1.numpy(), np.asarray(ref1), rtol=1e-5,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("ksizes,C", [((5, 5, 5), 6), ((3, 5, 2), 14)])
+def test_conv_bank_fft_matches_jax(ksizes, C):
+    """The FFT engine against the JAX package's, on the shapes of
+    tests/test_ops_vs_oracle.py:229-243: atol 2e-4, as there.  The
+    port's FFT also agrees with its own spatial engine to that bound."""
+    rng = np.random.default_rng(len(ksizes) + C)
+    filters = [rng.standard_normal((k, k, C)) for k in ksizes]
+    bank, _ = conv_t.pack_filter_bank(filters)
+    f = rng.standard_normal((2, 21, 17, C)).astype(np.float32)
+    ts = [[21, 17], [15, 11]]
+    ref = jax.jit(conv_jax.conv_bank_fft)(
+        jnp.asarray(f), jnp.asarray(bank), jnp.asarray(ts, jnp.int32))
+    args = (torch.from_numpy(f), torch.from_numpy(bank))
+    tst = torch.tensor(ts, dtype=torch.int32)
+    got = conv_t.conv_bank_fft(*args, true_size=tst)
+    assert got.shape == ref.shape == (2, 21, 17, len(ksizes))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-4)
+    np.testing.assert_allclose(
+        got.numpy(), conv_t.conv_bank(*args, true_size=tst).numpy(),
+        atol=2e-4)
+    one = conv_t.conv_bank_fft(args[0][0], args[1])
+    np.testing.assert_allclose(
+        one.numpy(), np.asarray(jax.jit(conv_jax.conv_bank_fft)(
+            jnp.asarray(f[0]), jnp.asarray(bank))), atol=2e-4)
+    assert conv_t.CONV_ENGINES == {"spatial": conv_t.conv_bank,
+                                   "fft": conv_t.conv_bank_fft}

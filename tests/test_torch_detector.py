@@ -121,23 +121,36 @@ def test_detect_returns_host_detections():
 
 
 def test_out_of_scope_options_raise():
+    """What the port leaves to other entry points or removed (ROADMAP.md
+    queue 1 item 20) raises; the options it carries are accepted."""
     m = syn_t.tiny()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Detector(m, conv_engine="fft", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Detector(m, depth_prune=object(), device="cpu")
+    with pytest.raises(ValueError, match="MultiResDetector"):
+        Detector(syn_t.tiny_multires(), device="cpu")
+    with pytest.raises(ValueError, match="walk_impl"):
+        Detector(m, walk_impl="pallas", device="cpu")
+    with pytest.raises(ValueError, match="conv_engine"):
+        Detector(m, conv_engine="wavelet", device="cpu")
+    with pytest.raises(TypeError):
+        Detector(m, dt_impl="xla", device="cpu")
     det = Detector(m, device="cpu")
     im = np.zeros((40, 40, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="depth_prune"):
         det.detect_raw(im, depth=np.ones((40, 40)))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        det.detect_masked_raw(im, [])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Detector(syn_t.tiny_multires(), device="cpu")
     shared = syn_t.tiny()
     shared.components[0].parts[2].filterid[0] = \
         shared.components[0].parts[1].filterid[0]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Detector(shared, device="cpu")
-    with pytest.raises(ValueError, match="walk_impl"):
-        Detector(m, walk_impl="pallas", device="cpu")
+    assert Detector(shared, device="cpu").packed.components[0].aliased
+    assert Detector(m, conv_engine="fft", device="cpu").conv_engine == "fft"
+
+
+def test_bounding_box_norm_matches_jax():
+    """Detection.bounding_box_norm (include/Candidate.hpp:117-130) on one
+    detection, against the JAX package's method: exact."""
+    from partsbaseddetector_tpu.infer.detector import Detection as DetJax
+    parts = np.random.default_rng(4).uniform(0, 90, (26, 4))
+    parts[:, 2:] += parts[:, :2]
+    locs = np.zeros((26, 3), np.int32)
+    got = Detection(1.0, 0, 3, parts, locs).bounding_box_norm()
+    ref = DetJax(1.0, 0, 3, parts, locs).bounding_box_norm()
+    assert got.shape == (4,)
+    np.testing.assert_array_equal(got, ref)

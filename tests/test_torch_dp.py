@@ -18,6 +18,7 @@ from partsbaseddetector_tpu.ops import dp as dp_jax
 from partsbaseddetector_tpu.ops import dt as dt_jax
 from partsbaseddetector_tpu_torch.ops import dp as dp_t
 from partsbaseddetector_tpu_torch.ops import dt as dt_t
+from test_aliasing import aliased_chain
 from test_torch_models import port_packed
 
 torch.set_num_threads(1)
@@ -104,3 +105,70 @@ def test_dp_min_levels(maker, hw, compose):
     np.testing.assert_array_equal(one.rooti.numpy(), np.asarray(ref1.rooti))
     np.testing.assert_allclose(one.rootv.numpy(), np.asarray(ref1.rootv),
                                **TOL)
+
+
+def _masks(rng, L, P, hw):
+    """Random part placement masks with every (level, part) allowed
+    somewhere."""
+    m = rng.random((L, P) + hw) < 0.6
+    m[..., 0, 0] = True
+    return m
+
+
+@pytest.mark.parametrize("compose", ["reference", "correct"])
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+def test_dp_min_levels_aliased(compose, masked):
+    """The filter-keyed DP on tests/test_aliasing.py's aliased_chain
+    (parent/child and within-part filter sharing): rootv, scores (the
+    visit-time values) and tmp within 1e-6, rooti exact."""
+    jp = tree_jax.pack_model(aliased_chain(13))
+    pt = port_packed(jp)
+    assert jp.components[0].aliased and pt.components[0].aliased
+    rng = np.random.default_rng(4)
+    L, hw, F = 3, (9, 12), jp.bank.shape[3]
+    P = jp.components[0].filterid.shape[0]
+    pdfs = rng.standard_normal((L,) + hw + (F,)).astype(np.float32)
+    sizes = np.array([hw, (7, 10), (5, 6)], np.int32)
+    masks = _masks(rng, L, P, hw) if masked else None
+    ref = dp_jax.dp_min_levels(
+        jnp.asarray(pdfs), jp.components[0], compose,
+        part_masks=None if masks is None else jnp.asarray(masks),
+        true_sizes=jnp.asarray(sizes))
+    got = dp_t.dp_min_levels(
+        torch.from_numpy(pdfs), pt.components[0], compose,
+        None if masks is None else torch.from_numpy(masks),
+        true_sizes=torch.from_numpy(sizes))
+    assert got.tmp.transpose(-1, -2).is_contiguous()
+    np.testing.assert_array_equal(got.rooti.numpy(), np.asarray(ref.rooti))
+    for f in ("rootv", "scores", "tmp"):
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(ref, f)), rtol=1e-6,
+                                   atol=1e-6, err_msg=f)
+
+
+@pytest.mark.parametrize("maker,hw", [("tiny", (10, 13)),
+                                      ("person_like", (8, 11))])
+def test_dp_min_levels_part_masks(maker, hw):
+    """part_masks on the DP keyed by part slot, with and without true
+    sizes; rooti exact, the maps to the module's tolerance."""
+    jp = tree_jax.pack_model(getattr(syn_jax, maker)(seed=2))
+    pt = port_packed(jp)
+    rng = np.random.default_rng(12)
+    L, F = 2, jp.bank.shape[3]
+    P = jp.components[0].filterid.shape[0]
+    pdfs = rng.standard_normal((L,) + hw + (F,)).astype(np.float32)
+    masks = _masks(rng, L, P, hw)
+    for sizes in (None, np.array([hw, (hw[0] - 3, hw[1] - 2)], np.int32)):
+        ref = dp_jax.dp_min_levels(
+            jnp.asarray(pdfs), jp.components[0], part_masks=jnp.asarray(masks),
+            true_sizes=None if sizes is None else jnp.asarray(sizes))
+        got = dp_t.dp_min_levels(
+            torch.from_numpy(pdfs), pt.components[0],
+            part_masks=torch.from_numpy(masks),
+            true_sizes=None if sizes is None else torch.from_numpy(sizes))
+        np.testing.assert_array_equal(got.rooti.numpy(),
+                                      np.asarray(ref.rooti))
+        for f in ("rootv", "scores", "tmp"):
+            np.testing.assert_allclose(getattr(got, f).numpy(),
+                                       np.asarray(getattr(ref, f)),
+                                       err_msg=f, **TOL)

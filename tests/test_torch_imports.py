@@ -34,7 +34,8 @@ def test_port_has_the_slice_modules():
                  "ops.conv", "models.part_tree", "models.transfer",
                  "ops.hog", "infer.pyramid_plan", "ops.imageops",
                  "ops.dt", "ops.dp", "ops.argmax", "ops.walk",
-                 "ops._build", "infer.detector"):
+                 "ops._build", "infer.detector", "ops.nms",
+                 "infer.multires"):
         assert f"partsbaseddetector_tpu_torch.{name}" in mods, name
     assert (REPO / "partsbaseddetector_tpu_torch/csrc/walk.cu").is_file()
 
@@ -59,7 +60,7 @@ def test_importing_the_port_loads_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["n"] >= 15
+    assert res["n"] >= 17
     assert res["bad"] == []
 
 

@@ -266,3 +266,32 @@ def test_check_walk_args_wants_w_minor_tmp():
               .transpose(-1, -2))
     with pytest.raises(TypeError, match="parent"):
         check(tmp_w, parent=t["parent"].long())
+
+
+@pytest.mark.parametrize("compose", ["reference", "correct"])
+def test_walk_plain_on_aliased_dp_matches_pallas_interpret(compose):
+    """The walk over the filter-keyed DP's outputs (visit-time scores,
+    tests/test_aliasing.py's aliased_chain), seeded by the port's top-K:
+    the plain walk equals the Pallas kernel in interpret mode bit for
+    bit."""
+    from partsbaseddetector_tpu_torch.ops import dp as dp_t
+    from test_aliasing import aliased_chain
+    jp = tree_jax.pack_model(aliased_chain(13))
+    comp = port_packed(jp).components[0]
+    assert comp.aliased
+    rng = np.random.default_rng(8)
+    pdfs = rng.standard_normal((3, 9, 12, jp.bank.shape[3])).astype(
+        np.float32)
+    res = dp_t.dp_min_levels(torch.from_numpy(pdfs), comp, compose)
+    _, _, xs, ys, mv = argmax_t._root_seeds(res.rootv, res.rooti, -1e9, 16)
+    anchor = comp.anchor.to(torch.float32)
+    parent = torch.tensor(jp.parent_static[0], dtype=torch.int32)
+    ref = walk_tree_pallas(
+        *(jnp.asarray(t.numpy()) for t in (
+            res.scores, res.tmp, xs, ys, mv, comp.defw, anchor, comp.bias,
+            parent)), compose=compose, interpret=True)
+    got = walk_t.walk_tree(res.scores, res.tmp, xs, ys, mv, comp.defw,
+                           anchor, comp.bias, parent, compose)
+    for name, r, g in zip("XYM", ref, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r),
+                                      err_msg=name)
