@@ -55,7 +55,20 @@ Phases, in order; any failure raises and the script exits non-zero:
          its parts): shapes, order, card vs CPU at 120x160;
      (g) paint_nms, part_nms and grid_nms on one frame of the thresh
          -1e9 Candidates (a root score map for grid_nms): card == CPU;
-  8. the kernels line (JSON; launches per path beside the main path's),
+  8. the serving path: person-26 (thresh -1e9) written by the port's
+     save_filestorage to an .xml, served by the port's ROS node
+     (PartsBasedDetectorNode.from_params, device "cuda") over a fake
+     transport with mask, bounding_box, part_centers and object_poses
+     subscribed, on 16 seeded 640x480 RGB-D frames (uint16 depth in mm,
+     organized clouds, Kinect intrinsics): walk launches per dispatch
+     of a ROS callback (B=1) and of StreamingDetector.stream (B=8);
+     stream == process_batch == detect_batch_raw -> paint_nms ->
+     candidates_to_detections; kernel-walk == plain-walk FrameResults;
+     card vs CPU at 120x160 through StreamingDetector; the cleaned_cloud
+     topic with planes removed on 2 frames; frames/s of process,
+     process_batch and stream, the post stage's host ms per frame by
+     stage, peak device memory and the messages published per topic;
+  9. the kernels line (JSON; launches per path beside the main path's),
      the card line, then the last line {"ok": true, "device": {...}}.
 
 It imports torch, numpy and the port only.
@@ -1061,6 +1074,399 @@ def phase_nms(all_c, rootv) -> None:
     report("grid_nms", lambda: nms.grid_nms(rootv, 3), 1)
 
 
+# ---------------------------------------------------------------- phase 8
+# The serving path: a person-26 model file served by the port's ROS node
+# and StreamingDetector.  Each path that ends in the walk kernel is
+# driven with the launch count set to 0 just before and read just after.
+
+#: frames of the serving fixture, and its micro-batch
+NSERVE = 16
+SERVE_BATCH = 8
+#: the topics the fixture subscribes to; the overlay
+#: (candidates_rect_color) needs PIL and stays unsubscribed
+SERVE_TOPICS = ("mask", "bounding_box", "part_centers", "object_poses")
+#: the StreamingDetector sinks behind those topics
+SERVE_SINKS = ("mask", "boxes3d", "part_centers", "poses")
+
+
+class FakePublisher:
+    """A transport's publisher: keeps what it is given."""
+
+    def __init__(self):
+        self.subscribers = 0
+        self.published = []
+
+    def publish(self, msg):
+        self.published.append(msg)
+
+    def get_num_connections(self):
+        return self.subscribers
+
+
+class FakeTransport:
+    """The duck-typed transport the ROS node takes
+    (tests/test_frontends.py:24-45)."""
+
+    def __init__(self):
+        self.pubs = {}
+
+    def advertise(self, topic, kind):
+        self.pubs[topic] = FakePublisher()
+        return self.pubs[topic]
+
+    def pub(self, suffix):
+        return next(p for t, p in self.pubs.items() if t.endswith(suffix))
+
+
+def kinect_camera(shape):
+    """Kinect-like intrinsics (fx = fy = 525, principal point at the
+    center of 640x480), scaled to an image shape."""
+    from partsbaseddetector_tpu_torch.post.depth import CameraModel
+    s = shape[1] / 640.0
+    return CameraModel(fx=525.0 * s, fy=525.0 * s, cx=(shape[1] - 1) / 2,
+                       cy=(shape[0] - 1) / 2)
+
+
+def serve_scene(n: int, shape, seed: int):
+    """n seeded frames: rgb uint8 (H, W, 3); uint16 depth in mm, a plane
+    at about 2 m (1.8 m at the top row, 0.5 mm farther a row) with a box
+    face nearer (1.2-1.6 m, 0.5 mm farther a column; a quarter to a
+    half of the frame on each side, placed at random), so that 3-D
+    boxes have depth; and the organized (H, W, 3) cloud in meters
+    back-projected from it with kinect_camera."""
+    H, W = shape
+    cam = kinect_camera(shape)
+    rng = np.random.default_rng(seed)
+    xs, ys = np.meshgrid(np.arange(W), np.arange(H))
+    rgbs, depths, clouds = [], [], []
+    for _ in range(n):
+        rgbs.append(rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
+        d = (1800 + ys // 2).astype(np.uint16)
+        bh, bw = rng.integers(H // 4, H // 2), rng.integers(W // 4, W // 2)
+        y0, x0 = rng.integers(0, H - bh), rng.integers(0, W - bw)
+        d[y0:y0 + bh, x0:x0 + bw] = rng.integers(1200, 1600) \
+            + xs[y0:y0 + bh, x0:x0 + bw] // 2
+        z = d / 1000.0
+        depths.append(d)
+        clouds.append(np.stack([(xs - cam.cx) / cam.fx * z,
+                                (ys - cam.cy) / cam.fy * z, z], -1))
+    return rgbs, depths, clouds
+
+
+def subscribe(sd):
+    """The StreamingDetector sinks of the subscribed topics."""
+    for sink in SERVE_SINKS:
+        sd.on(sink, lambda _: None)
+    return sd
+
+
+def same_detections(a, b, what: str, score_tol: float) -> None:
+    """Per detection: level, component, locations and part boxes equal,
+    scores within score_tol."""
+    if len(a) != len(b):
+        raise RuntimeError(f"{what}: {len(a)} vs {len(b)} detections")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if ((x.level, x.component) != (y.level, y.component)
+                or not np.array_equal(x.locations, y.locations)
+                or not np.array_equal(x.parts, y.parts)
+                or not abs(x.score - y.score) <= score_tol):
+            raise RuntimeError(f"{what}: detection {i} differs")
+
+
+def agreeing(a, b) -> int:
+    """How many leading detections of two lists agree in level,
+    component and locations."""
+    n = 0
+    for x, y in zip(a, b):
+        if ((x.level, x.component) != (y.level, y.component)
+                or not np.array_equal(x.locations, y.locations)):
+            break
+        n += 1
+    return n
+
+
+def same_3d(a, b, n: int, what: str, atol: float) -> float:
+    """boxes3d, part_centers and poses of two FrameResults' first n
+    detections within atol (0: equal); returns the largest gap."""
+    import dataclasses
+    gap = 0.0
+    for i in range(n):
+        pa, pb = a.poses[i], b.poses[i]
+        if (pa is None) != (pb is None):
+            raise RuntimeError(f"{what}: pose {i} present in one only")
+        pairs = [(dataclasses.astuple(a.boxes3d[i]),
+                  dataclasses.astuple(b.boxes3d[i])),
+                 (a.part_centers[i], b.part_centers[i])]
+        if pa is not None:
+            pairs += [(pa.position, pb.position),
+                      (pa.orientation, pb.orientation)]
+        for x, y in pairs:
+            x, y = np.asarray(x, float), np.asarray(y, float)
+            if x.shape != y.shape:
+                raise RuntimeError(f"{what}: shapes differ at {i}")
+            both = np.isnan(x) & np.isnan(y)
+            d = np.where(both, 0.0, np.abs(x - y))
+            gap = max(gap, float(d.max(initial=0.0)))
+    if not gap <= atol:
+        raise RuntimeError(f"{what}: 3-D outputs differ by {gap:.3g} "
+                           f"(limit {atol})")
+    return gap
+
+
+def same_results(a, b, what: str) -> None:
+    """Two lists of FrameResults equal: detections (scores too), masks,
+    boxes3d, part_centers and poses."""
+    if len(a) != len(b):
+        raise RuntimeError(f"{what}: {len(a)} vs {len(b)} frames")
+    for j, (x, y) in enumerate(zip(a, b)):
+        same_detections(x.detections, y.detections, f"{what}, frame {j}",
+                        0.0)
+        if not np.array_equal(x.mask, y.mask):
+            raise RuntimeError(f"{what}, frame {j}: masks differ")
+        same_3d(x, y, len(x.detections), f"{what}, frame {j}", 0.0)
+
+
+def post_split(cands_b, rgbs, depths_m, clouds, cam, n_clusters: int):
+    """Host ms per frame of each post stage, run by hand on one batch's
+    Candidates as StreamingDetector._postprocess runs them: the paint
+    NMS on the card (to a synchronize), the fetch of the detections,
+    compute_bounding_boxes, poses, the mask and the four messages, and
+    (on the first n_clusters frames) plane removal + clustering."""
+    from partsbaseddetector_tpu_torch.frontends import messages as msgs
+    from partsbaseddetector_tpu_torch.infer.detector import Detector
+    from partsbaseddetector_tpu_torch.infer.stream import detections_mask
+    from partsbaseddetector_tpu_torch.ops.nms import paint_nms
+    from partsbaseddetector_tpu_torch.post.cloud import (
+        cluster_objects, compute_bounding_boxes,
+        organized_multiplane_segmentation)
+    from partsbaseddetector_tpu_torch.post.poses import \
+        poses_from_part_centers
+    acc: dict = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        acc.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    header = msgs.Header()
+    for i in range(len(rgbs)):
+        c = cands_b.map(lambda x: x[i])
+        kept = timed("nms", lambda: (paint_nms(c, IMG, 0.1),
+                                     torch.cuda.synchronize())[0])
+        dets = timed("fetch", lambda: Detector.candidates_to_detections(
+            kept, 32))
+        boxes, centers = timed("boxes3d", lambda: compute_bounding_boxes(
+            dets, IMG, depths_m[i], cam))
+        timed("poses", lambda: poses_from_part_centers(centers))
+        timed("messages", lambda: (
+            msgs.message_mask(detections_mask(IMG, dets), rgbs[i], header),
+            msgs.message_bounding_box(boxes, header, "person"),
+            msgs.message_part_centers(centers, header, "person"),
+            msgs.message_poses(header, centers)))
+        if i < n_clusters:
+            timed("clusters", lambda: cluster_objects(
+                organized_multiplane_segmentation(clouds[i]), boxes))
+    return {k: statistics.mean(v) for k, v in acc.items()}
+
+
+def phase_serving(smi: str) -> dict:
+    """8. The serving path on the card; returns the walk launches per
+    dispatch of the ROS callback (B=1) and of stream (B=8)."""
+    import os
+    import tempfile
+    from partsbaseddetector_tpu_torch.frontends.ros_node import \
+        PartsBasedDetectorNode
+    from partsbaseddetector_tpu_torch.infer.detector import Detector
+    from partsbaseddetector_tpu_torch.infer.stream import StreamingDetector
+    from partsbaseddetector_tpu_torch.models import (save_filestorage,
+                                                     synthetic)
+    from partsbaseddetector_tpu_torch.ops.nms import paint_nms
+
+    # thresh -1e9: every frame carries detections into the NMS and the
+    # 3-D stages (at 0.0 the random weights may give none)
+    m = synthetic.person_like()
+    m.thresh = -1e9
+    rgbs, depths_mm, clouds = serve_scene(NSERVE, IMG, seed=8)
+    depths = [d.astype(np.float32) / 1000.0 for d in depths_mm]
+    cam = kinect_camera(IMG)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "person26.xml")
+        t0 = time.perf_counter()
+        save_filestorage(path, m)
+        t1 = time.perf_counter()
+        transport = FakeTransport()
+        node = PartsBasedDetectorNode.from_params(
+            transport, {"model": path, "device": "cuda"}, camera=cam)
+        t2 = time.perf_counter()
+        plain_transport = FakeTransport()
+        plain_node = PartsBasedDetectorNode.from_params(
+            plain_transport, {"model": path, "device": "cuda",
+                              "walk_impl": "torch"}, camera=cam)
+        size = os.path.getsize(path)
+    log(f"serve: person-26 model file {size} B written in "
+        f"{(t1 - t0) * 1e3:.1f} ms, read and the node built in "
+        f"{(t2 - t1) * 1e3:.1f} ms (from_params, device cuda)")
+    det = node.stream.detector
+    if det.walk_impl != "cuda" or plain_node.stream.detector.walk_impl \
+            != "torch":
+        raise RuntimeError("serve: the nodes' walks are not cuda / torch")
+    expected = expected_launches(det, IMG)
+    for topic in SERVE_TOPICS:
+        transport.pub(topic).subscribers = 1
+        plain_transport.pub(topic).subscribers = 1
+
+    # (1) launches: one ROS callback (B=1), then stream at B=8
+    node.depth_image_callback(rgbs[0], depths_mm[0], clouds[0])   # warm
+    _, n1 = counted(lambda: node.depth_image_callback(
+        rgbs[1], depths_mm[1], clouds[1]))
+    expect_launches("serve: ROS depth_image_callback, B=1", n1, expected)
+    for i in range(2, NSERVE):
+        node.depth_image_callback(rgbs[i], depths_mm[i], clouds[i])
+    published = {t.rsplit("/", 1)[1]: len(p.published)
+                 for t, p in transport.pubs.items()}
+    log(f"serve: messages published per topic over {NSERVE} callbacks: "
+        f"{json.dumps(published)}")
+    if any(published[t] < NSERVE for t in SERVE_TOPICS) or \
+            published["candidates_rect_color"] or published["cleaned_cloud"]:
+        raise RuntimeError(f"serve: publishing not gated by subscribers: "
+                           f"{published}")
+
+    sd = subscribe(StreamingDetector(det, camera=cam))
+    ndisp = NSERVE // SERVE_BATCH
+    streamed, n8 = counted(lambda: list(sd.stream(
+        rgbs, batch=SERVE_BATCH, depths=depths, clouds=clouds)))
+    expect_launches(f"serve: stream, {NSERVE} frames at B={SERVE_BATCH}, "
+                    f"per dispatch", n8 / ndisp, expected)
+    ndet = [len(r.detections) for r in streamed]
+    log(f"serve: detections per frame after paint NMS (0.1, at most 32): "
+        f"{ndet}")
+    if len(streamed) != NSERVE or min(ndet) == 0:
+        raise RuntimeError("serve: a frame without detections")
+
+    # (2) stream == process_batch on each group of 8
+    groups = [slice(g, g + SERVE_BATCH) for g in range(0, NSERVE,
+                                                        SERVE_BATCH)]
+    batched = [r for g in groups for r in sd.process_batch(
+        np.stack(rgbs[g]), np.stack(depths[g]), np.stack(clouds[g]))]
+    for j, (a, b) in enumerate(zip(streamed, batched)):
+        same_detections(a.detections, b.detections,
+                        f"serve: stream vs process_batch, frame {j}", 5e-4)
+    log("serve: stream == process_batch on every frame (level, component, "
+        "locations exact, score within 5e-4)")
+
+    # (3) stream == the direct path: detect, paint NMS, detections
+    raw = []
+    for g in groups:
+        c = det.detect_batch_raw(np.stack(rgbs[g]))
+        raw.append(c)
+        for i in range(SERVE_BATCH):
+            direct = Detector.candidates_to_detections(
+                paint_nms(c.map(lambda x: x[i]), IMG, 0.1), 32)
+            j = g.start + i
+            same_detections(streamed[j].detections, direct,
+                            f"serve: stream vs direct path, frame {j}", 0.0)
+    log("serve: stream == detect_batch_raw -> paint_nms(0.1) -> "
+        "candidates_to_detections(32) on every frame (exact)")
+
+    # (4) kernel walk == plain walk through the whole serving path: the
+    # two nodes' callbacks, and stream on their detectors
+    same_results(
+        [node.depth_image_callback(rgbs[i], depths_mm[i], clouds[i])
+         for i in (0, 1)],
+        [plain_node.depth_image_callback(rgbs[i], depths_mm[i], clouds[i])
+         for i in (0, 1)], "serve: kernel-walk vs plain-walk callbacks")
+    sd_plain = subscribe(StreamingDetector(plain_node.stream.detector,
+                                           camera=cam))
+    same_results(streamed, list(sd_plain.stream(
+        rgbs, batch=SERVE_BATCH, depths=depths, clouds=clouds)),
+        "serve: kernel-walk vs plain-walk stream")
+    log("serve: kernel-walk == plain-walk FrameResults (detections, mask, "
+        "boxes3d, part_centers, poses): 2 ROS callbacks and all "
+        f"{NSERVE} frames of stream")
+
+    # (5) card vs CPU at 120x160 through StreamingDetector
+    serve_card_vs_cpu()
+
+    # (6) clusters: the cleaned_cloud topic, planes removed, 2 frames;
+    # a prebuilt detector and no name
+    ct = FakeTransport()
+    cnode = PartsBasedDetectorNode(det, ct, camera=cam, remove_planes=True)
+    ct.pub("cleaned_cloud").subscribers = 1
+    t0 = time.perf_counter()
+    for i in range(2):
+        res = cnode.depth_image_callback(rgbs[i], depths_mm[i], clouds[i])
+    ms = (time.perf_counter() - t0) * 1e3 / 2
+    pts = [len(c) for c in res.clusters]
+    nclouds = len(ct.pub("cleaned_cloud").published)
+    log(f"serve: cleaned_cloud (remove_planes, node named {cnode.name!r} "
+        f"from its prebuilt detector): {nclouds} clouds published, cluster "
+        f"sizes of the 2nd frame {pts}; {ms:.1f} ms a callback")
+    if nclouds != 2:
+        raise RuntimeError("serve: cleaned_cloud not published per frame")
+
+    # the post stage, split by hand on the first batch
+    split = post_split(raw[0], rgbs[:SERVE_BATCH], depths, clouds, cam, 2)
+    log("serve: post stage, host ms per frame: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()) + " (clusters: 2 frames)")
+
+    # times: median of 3 after a warm call, host clock to a synchronize,
+    # and the peak device memory of those calls
+    first = slice(0, SERVE_BATCH)
+    runs = (
+        ("process (B=1)", 1,
+         lambda: sd.process(rgbs[0], depths[0], clouds[0])),
+        (f"process_batch (B={SERVE_BATCH})", SERVE_BATCH,
+         lambda: sd.process_batch(np.stack(rgbs[first]),
+                                  np.stack(depths[first]),
+                                  np.stack(clouds[first]))),
+        (f"stream ({NSERVE} frames, batch {SERVE_BATCH})", NSERVE,
+         lambda: list(sd.stream(rgbs, batch=SERVE_BATCH, depths=depths,
+                                clouds=clouds))))
+    for what, nframes, fn in runs:
+        ms, peak, base = wall_ms(fn)
+        log(f"serve: {what} {ms / nframes:.3f} ms/frame, "
+            f"{1e3 * nframes / ms:.2f} frames/s (median of 3 after a warm "
+            f"call, host clock to synchronize); peak device memory {peak} "
+            f"B ({peak / 2**30:.2f} GiB; {base} B held before the calls) "
+            f"[{smi}]")
+    return {"serve": n8 // ndisp, "serve_single": n1}
+
+
+def serve_card_vs_cpu() -> None:
+    """(5) person-26 at 120x160 through a StreamingDetector on the card
+    and one on the CPU: the raw Candidates under the cross-engine
+    contract, then, where the detections agree, equal masks and
+    boxes3d, part_centers and poses within 1e-5.  The paint NMS keeps
+    overlaps up to 0.9 here: a person-26 hull spans most of a 120x160
+    frame, so the node's 0.1 keeps one detection there (0.9: five)."""
+    from partsbaseddetector_tpu_torch.infer.stream import StreamingDetector
+    from partsbaseddetector_tpu_torch.models import synthetic
+    m = synthetic.person_like()
+    m.thresh = -1e9
+    (rgb,), (depth_mm,), (cloud,) = serve_scene(1, SMALL, seed=9)
+    depth = depth_mm.astype(np.float32) / 1000.0
+    sds = {d: subscribe(StreamingDetector(
+        m, camera=kinect_camera(SMALL), max_overlap=0.9, k_per_level=8,
+        device=d)) for d in ("cuda", "cpu")}
+    contract_vs_cpu(sds["cuda"]._detect_single(rgb),
+                    sds["cpu"]._detect_single(rgb), 8,
+                    sds["cpu"].detector.plan_for(SMALL).levels,
+                    "serve: card vs CPU at 120x160 (raw)")
+    a, b = (sds[d].process(rgb, depth, cloud) for d in ("cuda", "cpu"))
+    n = agreeing(a.detections, b.detections)
+    if n == 0:
+        raise RuntimeError("serve: card vs CPU: no detection agrees")
+    whole = n == len(a.detections) == len(b.detections)
+    if whole and not np.array_equal(a.mask, b.mask):
+        raise RuntimeError("serve: card vs CPU: masks differ")
+    gap = same_3d(a, b, n, "serve: card vs CPU", 1e-5)
+    log(f"serve: card vs CPU at 120x160 through StreamingDetector: {n} of "
+        f"{len(a.detections)}/{len(b.detections)} detections agree"
+        f"{', masks equal' if whole else ''}; boxes3d, part_centers, poses "
+        f"within {gap:.3g} (limit 1e-5)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on "
@@ -1089,6 +1495,7 @@ def main() -> int:
     phase_features()
     phase_multires(frames)
     phase_nms(all_c, kern["rootv"])
+    paths.update(phase_serving(smi))
     log(json.dumps({"kernels": [{
         "name": "walk_tree", "route": "cuda",
         "source": "partsbaseddetector_tpu_torch/csrc/walk.cu",

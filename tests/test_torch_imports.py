@@ -35,9 +35,28 @@ def test_port_has_the_slice_modules():
                  "ops.hog", "infer.pyramid_plan", "ops.imageops",
                  "ops.dt", "ops.dp", "ops.argmax", "ops.walk",
                  "ops._build", "infer.detector", "ops.nms",
-                 "infer.multires"):
+                 "infer.multires", "post.rect3", "post.depth",
+                 "post.poses", "post.cloud", "models.filestorage",
+                 "models.matio", "models.npzio", "utils.viz",
+                 "infer.stream", "frontends.messages", "frontends.ros_node",
+                 "frontends.ecto_cell", "frontends.ork_config",
+                 "tools.demo"):
         assert f"partsbaseddetector_tpu_torch.{name}" in mods, name
     assert (REPO / "partsbaseddetector_tpu_torch/csrc/walk.cu").is_file()
+
+
+def _run(code: str) -> dict:
+    """Run code in a fresh interpreter that sees the repo; its last line
+    of output is JSON."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def test_importing_the_port_loads_no_jax():
@@ -51,17 +70,31 @@ def test_importing_the_port_loads_no_jax():
         "m.startswith('jaxlib.') or m == 'partsbaseddetector_tpu' or "
         "m.startswith('partsbaseddetector_tpu.')]\n"
         "print(json.dumps({'n': len(mods), 'bad': bad}))\n")
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(
-            os.pathsep) if p])
-    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
-                         env=env, capture_output=True, text=True,
-                         timeout=120)
-    assert out.returncode == 0, out.stderr
-    res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["n"] >= 17
+    res = _run(code)
+    assert res["n"] >= 38
     assert res["bad"] == []
+
+
+def test_the_port_imports_without_pil_and_yaml():
+    """Neither PIL nor PyYAML is on the card machine: every port module
+    imports with both blocked; only the overlay, the demo's image files
+    and the ORK parser need them, inside the functions that use them."""
+    code = (
+        "import importlib, json, sys\n"
+        "sys.modules['PIL'] = None\n"
+        "sys.modules['yaml'] = None\n"
+        f"mods = {_port_modules()!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "from partsbaseddetector_tpu_torch.frontends import parse_by_parts\n"
+        "try:\n"
+        "    parse_by_parts('a:\\n  type: X\\n  module: m\\n')\n"
+        "    blocked = False\n"
+        "except ImportError:\n"
+        "    blocked = True\n"
+        "print(json.dumps({'n': len(mods), 'blocked': blocked}))\n")
+    res = _run(code)
+    assert res == {"n": len(_port_modules()), "blocked": True}
 
 
 def test_precision_flags_off_at_import():
