@@ -68,7 +68,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      topic with planes removed on 2 frames; frames/s of process,
      process_batch and stream, the post stage's host ms per frame by
      stage, peak device memory and the messages published per topic;
-  9. the kernels line (JSON; launches per path beside the main path's),
+  9. training on the card (the port's train_parts_model,
+     device="cuda"): (1) the config of tests/test_train.py:202-227
+     trained on the card and on the CPU: equal decisions (latent
+     positives, cache after mining, prune passes), weights within 1e-4
+     of max|w|, the same held-out root; (2) person-26 at full width (26
+     parts x 4 mixtures, 104 filters; tests/test_accuracy_gate.py:
+     89-160's data and config) with held-out PCK and APK >= 0.9, every
+     detect checked to launch the walk kernel once per dp group and
+     component; (3) kernel walk == plain walk on the latent search
+     (masked, compose "correct"), a mining detect and the stage-1
+     single-filter model (P = 1, M = 1), with their launches per call;
+     (4) |w . detection_feature - score| < 5e-3 on held-out detections;
+     (5) the cost: seconds by stage and by kind of call (detect,
+     pyramid_features, host QP), peak device memory;
+ 10. the kernels line (JSON; launches per path beside the main path's),
      the card line, then the last line {"ok": true, "device": {...}}.
 
 It imports torch, numpy and the port only.
@@ -1467,6 +1481,415 @@ def serve_card_vs_cpu() -> None:
         f"within {gap:.3g} (limit 1e-5)")
 
 
+# ---------------------------------------------------------------- phase 9
+# Training on the card.  The trainer's detects, its feature fetches and
+# the host QP are timed from here (TrainClock wraps them on their
+# classes); the package carries no timer.
+
+#: the prune-and-continue config of tests/test_train.py:202-227
+SMALL_TRAIN = dict(nmix=1, binsize=4, interval=3, latent_iters=1, nmax=24,
+                   k_per_level=8, neg_per_image=4, C=0.05, overlap=0.35)
+#: the person-26 gate of tests/test_accuracy_gate.py:89-160: 26 parts x
+#: 4 mixtures, 10 training positives (20 with their mirror images), 4
+#: held out, 3 negative images
+P26_TRAIN = dict(nmix=4, binsize=4, interval=3, latent_iters=2, nmax=1200,
+                 k_per_level=8, neg_per_image=8, C=0.05, overlap=0.35)
+P26_NTRAIN = 10
+P26_NNEG = 3
+
+
+class TrainClock:
+    """Inside ``with clock:``, host timers around Detector.detect_raw,
+    Detector.detect_masked_raw, Detector.pyramid_features, QPCache.optimize
+    and trainer._train_filter_svm (restored on exit), and the trainer's
+    log lines stamped with their time (and echoed).  Each timed call ends
+    in a synchronize on the card.  On a walk_impl="cuda" detector every
+    detect must launch the walk kernel once per dp group and component,
+    or the call raises."""
+
+    def __init__(self, device: str):
+        self.device = device
+        self.lines = []      # (s since start, log line)
+        self.calls = []      # (kind, start s, seconds, walk launches)
+        self.launches = 0
+        self._buf = ""
+        self._restore = []
+        self.t0 = 0.0
+
+    def write(self, s: str) -> int:
+        self._buf += s
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.perf_counter() - self.t0, line))
+            self._stdout.write(line + "\n")
+        return len(s)
+
+    def flush(self) -> None:
+        self._stdout.flush()
+
+    def _sync(self) -> None:
+        if self.device == "cuda":
+            torch.cuda.synchronize()
+
+    def _wrap(self, owner, name: str, kind: str) -> None:
+        from partsbaseddetector_tpu_torch.ops import walk
+        orig = getattr(owner, name)
+        clock = self
+
+        def timed(*a, **kw):
+            n0 = walk.LAUNCHES
+            t = time.perf_counter()
+            out = orig(*a, **kw)
+            clock._sync()
+            dt = time.perf_counter() - t
+            n = walk.LAUNCHES - n0
+            if kind == "detect" and a[0].walk_impl == "cuda":
+                want = expected_launches(a[0], tuple(a[1].shape[:2]))
+                if n != want:
+                    raise RuntimeError(f"train: a detect launched the walk "
+                                       f"kernel {n} times, expected {want}")
+            if kind == "detect":
+                clock.launches += n
+            clock.calls.append((kind, t - clock.t0, dt, n))
+            return out
+        setattr(owner, name, timed)
+        self._restore.append((owner, name, orig))
+
+    def __enter__(self):
+        from partsbaseddetector_tpu_torch.infer.detector import Detector
+        from partsbaseddetector_tpu_torch.train import trainer
+        from partsbaseddetector_tpu_torch.train.qp import QPCache
+        for owner, name, kind in (
+                (Detector, "detect_raw", "detect"),
+                (Detector, "detect_masked_raw", "detect"),
+                (Detector, "pyramid_features", "features"),
+                (QPCache, "optimize", "qp"),
+                (trainer, "_train_filter_svm", "svm")):
+            self._wrap(owner, name, kind)
+        self._stdout = sys.stdout
+        sys.stdout = self
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout = self._stdout
+        for owner, name, orig in reversed(self._restore):
+            setattr(owner, name, orig)
+        return False
+
+    def counts(self) -> dict:
+        """The decisions the log records: latent positives, cache size
+        after mining and prune-and-continue passes per round, and the
+        round at which the cache saturated, if any."""
+        import re
+        out = {"latent_positives": [], "cache_after_mining": [],
+               "prune_passes": [], "saturated": []}
+        for _, line in self.lines:
+            m = re.search(r"iter (\d+): (\d+) latent positives", line)
+            if m:
+                out["latent_positives"].append(int(m.group(2)))
+            m = re.search(r"iter (\d+): cache (\d+)/\d+ after mining "
+                          r"\((\d+) prune", line)
+            if m:
+                out["cache_after_mining"].append(int(m.group(2)))
+                out["prune_passes"].append(int(m.group(3)))
+            m = re.search(r"iter (\d+): cache saturated .* image (\d+)/",
+                          line)
+            if m:
+                out["saturated"].append((int(m.group(1)), int(m.group(2))))
+        return out
+
+    def segments(self, total: float):
+        """(name, start s, end s) of the run's stages, cut at the log
+        lines that end them."""
+        import re
+        ends = (("latent positives", "build + latent search"),
+                ("after mining", "QP on positives + mining"),
+                ("LB=", "final QP + threshold"))
+        cuts = []
+        for t, line in self.lines:
+            part = re.search(r"stage 1: part (\d+)/(\d+)", line)
+            it = re.search(r"iter (\d+): ", line)
+            if "mixtures/part" in line:
+                cuts.append(("stage 0: clustering", t))
+            elif part and part.group(1) == part.group(2):
+                cuts.append(("stage 1: part SVMs", t))
+            elif it:
+                cuts.extend((f"round {it.group(1)}: {name}", t)
+                            for key, name in ends if key in line)
+        out, start = [], 0.0
+        for name, end in cuts:
+            out.append((name, start, end))
+            start = end
+        if total > start:
+            out.append(("after the last log line", start, total))
+        return out
+
+    def split(self, kind: str, lo: float = 0.0, hi: float = float("inf")):
+        """(seconds, calls) of the timed calls of one kind starting in
+        [lo, hi)."""
+        sel = [c for c in self.calls if c[0] == kind and lo <= c[1] < hi]
+        return sum(c[2] for c in sel), len(sel)
+
+
+def train_timed(name, pos, neg, parents, cfg: dict, device: str,
+                mirror_map=None):
+    """The port's train_parts_model on ``device`` under a TrainClock;
+    returns (model, clock, wall seconds)."""
+    from partsbaseddetector_tpu_torch.train.trainer import (TrainConfig,
+                                                           train_parts_model)
+    clock = TrainClock(device)
+    t0 = time.perf_counter()
+    with clock:
+        model = train_parts_model(
+            name, [s.image for s in pos], np.stack([s.points for s in pos]),
+            neg, parents, TrainConfig(**cfg), cache_dir=None, verbose=True,
+            mirror_map=mirror_map, device=device)
+        clock._sync()
+    return model, clock, time.perf_counter() - t0
+
+
+def cost_report(what: str, clock: TrainClock, total: float,
+                where: str) -> None:
+    """The training run's time split, by stage and by kind of call."""
+    log(f"{what}: {total:.3f} s wall on {where} (host clock; every timed "
+        f"call ends in a synchronize)")
+    for name, lo, hi in clock.segments(total):
+        parts = []
+        for kind in ("detect", "features", "qp"):
+            s, n = clock.split(kind, lo, hi)
+            parts.append(f"{kind} {s:.3f} s/{n}")
+        extra = ""
+        if name.startswith("stage 1"):
+            s, n = clock.split("svm", lo, hi)
+            extra = f"; {n} SVMs, {s / max(n, 1):.3f} s per SVM"
+        log(f"  {name}: {hi - lo:.3f} s ({', '.join(parts)}{extra})")
+    shares, rest = [], total
+    for kind in ("detect", "features", "qp"):
+        s, n = clock.split(kind)
+        rest -= s
+        shares.append(f"{kind} {s:.3f} s in {n} calls "
+                      f"({100 * s / total:.1f} %)")
+    log(f"  whole run: {'; '.join(shares)}; other {rest:.3f} s")
+
+
+def person26_gate(model, held, device: str):
+    """Held-out mean PCK@0.5 and mean APK of tests/test_accuracy_gate.py:
+    Detector(model, k_per_level=8) + part_nms(., 0.3), thresh -1e9."""
+    import dataclasses
+    from partsbaseddetector_tpu_torch.infer.detector import Detector
+    from partsbaseddetector_tpu_torch.ops.nms import part_nms
+    from partsbaseddetector_tpu_torch.utils.eval import (KeypointDetection,
+                                                         KeypointGT, apk,
+                                                         pck)
+    m = dataclasses.replace(model)
+    m.thresh = -1e9
+    det = Detector(m, k_per_level=8, device=device)
+    P = m.components[0].nparts
+    pred, gts, scales, all_dets = [], [], [], []
+    for s in held:
+        dets = det.candidates_to_detections(
+            part_nms(det.detect_raw(s.image), 0.3))
+        if not dets:
+            raise RuntimeError("train: no detection on a held-out positive")
+        all_dets.append(dets)
+        d = dets[0]
+        pred.append(np.stack([(d.parts[:, 0] + d.parts[:, 2]) / 2,
+                              (d.parts[:, 1] + d.parts[:, 3]) / 2], 1))
+        gts.append(s.points)
+        scales.append(s.scale)
+    pck_pp = pck(pred, gts, scales, thresh=0.5)
+    apks = []
+    for p in range(P):
+        dps, gps = [], []
+        for i, s in enumerate(held):
+            gps.append(KeypointGT(points=s.points[p:p + 1], scale=s.scale))
+            for d in all_dets[i][:4]:
+                c = np.array([(d.parts[p, 0] + d.parts[p, 2]) / 2,
+                              (d.parts[p, 1] + d.parts[p, 3]) / 2])
+                dps.append(KeypointDetection(i, d.score, c))
+        apks.append(apk(dps, gps, thresh=0.5)[0])
+    return float(pck_pp.mean()), float(np.mean(apks))
+
+
+def train_person26(device: str, where: str):
+    """Step 2: person-26 (26 parts x 4 mixtures) trained end to end on
+    ``device`` and gated on held-out PCK and APK >= 0.9; the cost split
+    printed.  Returns (model, train positives, negatives, held)."""
+    from partsbaseddetector_tpu_torch.ops import walk
+    from partsbaseddetector_tpu_torch.tools.datasets import (
+        PERSON26_MIRROR, PERSON26_PARENTS, synthetic_skeletons)
+    pos, neg = synthetic_skeletons(n=14, seed=7)
+    train, held = pos[:P26_NTRAIN], pos[P26_NTRAIN:]
+    neg = neg[:P26_NNEG]
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    walk.LAUNCHES = 0
+    model, clock, total = train_timed(
+        "person26", train, neg, PERSON26_PARENTS, P26_TRAIN, device,
+        mirror_map=PERSON26_MIRROR)
+    launches = walk.LAUNCHES
+    P, nmix = model.components[0].nparts, P26_TRAIN["nmix"]
+    if P != 26 or model.nfilters != P * nmix:
+        raise RuntimeError(f"train: person-26 gave {P} parts, "
+                           f"{model.nfilters} filters")
+    cost_report(f"train person-26 ({P} parts x {nmix} mixtures, "
+                f"{model.nfilters} filters, {2 * len(train)} positives "
+                f"with mirrors, {len(neg)} negative images)", clock, total,
+                where)
+    if device == "cuda":
+        log(f"  peak device memory {torch.cuda.max_memory_allocated()} B "
+            f"during training; walk kernel launches {launches} in "
+            f"{clock.split('detect')[1]} detects, each as many as its dp "
+            f"groups x components")
+        if launches == 0 or launches != clock.launches:
+            raise RuntimeError(f"train: walk launches {launches}, "
+                               f"{clock.launches} in the detects")
+    c = clock.counts()
+    log(f"  decisions: {json.dumps(c)}; thresh {model.thresh!r}")
+    mean_pck, mean_apk = person26_gate(model, held, device)
+    log(f"train person-26 gate: held-out mean PCK@0.5 {mean_pck:.4f}, mean "
+        f"APK {mean_apk:.4f} (gate 0.9 each) on {len(held)} held-out "
+        f"positives")
+    if not (mean_pck >= 0.9 and mean_apk >= 0.9):
+        raise RuntimeError("train: person-26 below the accuracy gate")
+    return model, train, neg, held
+
+
+def phase_train_small() -> None:
+    """9 (1). The small config trained on the card and on the CPU: equal
+    decisions, weights within 1e-4 of max|w|, equal held-out root."""
+    from partsbaseddetector_tpu_torch.infer.detector import Detector
+    from partsbaseddetector_tpu_torch.tools.datasets import synthetic_figures
+    from partsbaseddetector_tpu_torch.train.vectorize import (BlockLayout,
+                                                             model_to_vec)
+    pos, neg = synthetic_figures(n=8, imsize=(64, 64), nparts=2, seed=3)
+    runs = {d: train_timed("small", pos, neg[:3], [-1, 0], SMALL_TRAIN, d)
+            for d in ("cuda", "cpu")}
+    counts = {d: r[1].counts() for d, r in runs.items()}
+    w = {d: model_to_vec(r[0], BlockLayout.for_model(r[0]))[0]
+         for d, r in runs.items()}
+    gap = float(np.abs(w["cuda"] - w["cpu"]).max() / np.abs(w["cpu"]).max())
+    thresh = {d: r[0].thresh for d, r in runs.items()}
+    roots = {}
+    for d, (m, _, _) in runs.items():
+        m.thresh = -1e9
+        det = Detector(m, k_per_level=4, device=d)
+        roots[d] = det.candidates_to_detections(
+            det.detect_raw(pos[0].image), 1)[0].locations[0].tolist()
+    log(f"train small: card {json.dumps(counts['cuda'])} in "
+        f"{runs['cuda'][2]:.3f} s, CPU {json.dumps(counts['cpu'])} in "
+        f"{runs['cpu'][2]:.3f} s; weights card vs CPU max |diff| / max|w| "
+        f"{gap:.3g} (limit 1e-4); thresh {thresh['cuda']!r} vs "
+        f"{thresh['cpu']!r}; root on pos[0] {roots['cuda']} vs "
+        f"{roots['cpu']}")
+    if counts["cuda"] != counts["cpu"]:
+        raise RuntimeError("train small: card and CPU decisions differ")
+    if not gap <= 1e-4:
+        raise RuntimeError("train small: weights differ beyond 1e-4")
+    if roots["cuda"] != roots["cpu"]:
+        raise RuntimeError("train small: held-out root differs")
+
+
+def phase_train_paths(model, train, neg) -> dict:
+    """9 (3). Kernel walk == plain walk on the three detects of training,
+    with the trained person-26: the latent search on a training positive
+    under its overlap masks, a mining detect (interval 2, thresh -1.0)
+    and the stage-1 single-filter model (P = 1, M = 1, interval 2) on a
+    negative.  Returns the walk launches of one call of each."""
+    import dataclasses
+    from partsbaseddetector_tpu_torch.infer.detector import Detector
+    from partsbaseddetector_tpu_torch.tools.datasets import (
+        PERSON26_MIRROR, PERSON26_PARENTS)
+    from partsbaseddetector_tpu_torch.train import features
+    from partsbaseddetector_tpu_torch.train.cluster import point_to_box
+    from partsbaseddetector_tpu_torch.train.trainer import (
+        _single_filter_model, flip_positives)
+    k = P26_TRAIN["k_per_level"]
+    images, points = flip_positives([s.image for s in train],
+                                    np.stack([s.points for s in train]),
+                                    PERSON26_MIRROR)
+    boxes = point_to_box(points, PERSON26_PARENTS)
+    search = dataclasses.replace(model)
+    search.thresh = -1e9
+    mining = dataclasses.replace(model)
+    mining.interval, mining.thresh = 2, -1.0
+    stage1 = _single_filter_model(model.filters[0], model.biasw[0],
+                                  model.binsize, model.norient, model.flen,
+                                  -1.0)
+    im = images[0]
+    plan = Detector(search, k_per_level=k, compose="correct",
+                    device="cuda").plan_for(im.shape[:2])
+    by_level = features.part_overlap_masks(search, 0, plan, boxes[0],
+                                           P26_TRAIN["overlap"])
+    masks, li = [], 0
+    for bucket in plan.buckets:
+        masks.append(np.stack(by_level[li:li + len(bucket.levels)]))
+        li += len(bucket.levels)
+    cases = (("train_latent", search, im,
+              lambda d: d.detect_masked_raw(im, masks),
+              "latent search (masked, compose correct) on a training "
+              "positive"),
+             ("train_mine", mining, neg[0], lambda d: d.detect_raw(neg[0]),
+              "mining detect (interval 2, thresh -1.0) on a negative"),
+             ("train_stage1", stage1, neg[0], lambda d: d.detect_raw(neg[0]),
+              "stage-1 single-filter detect (P=1, M=1, interval 2) on a "
+              "negative"))
+    out = {}
+    for key, m, image, call, what in cases:
+        dets = {impl: Detector(m, k_per_level=k, compose="correct",
+                               device="cuda", walk_impl=impl)
+                for impl in ("cuda", "torch")}
+        got, n = counted(lambda: call(dets["cuda"]))
+        expect_launches(f"train: {what}", n,
+                        expected_launches(dets["cuda"], image.shape[:2]))
+        if n == 0:
+            raise RuntimeError(f"train: {what} left the walk kernel")
+        equal_candidates(got, call(dets["torch"]),
+                         f"train: {what}: kernel walk vs plain walk "
+                         f"({int(got.valid.sum())} valid)")
+        out[key] = n
+    return out
+
+
+def phase_train_invariant(model, held) -> None:
+    """9 (4). |w . detection_feature - score| < 5e-3 on the held-out
+    detections of the trained person-26 on the card (compose correct,
+    the trainer's detector; tests/test_train.py:72-91)."""
+    import dataclasses
+    from partsbaseddetector_tpu_torch.infer.detector import Detector
+    from partsbaseddetector_tpu_torch.train.features import detection_feature
+    from partsbaseddetector_tpu_torch.train.vectorize import (BlockLayout,
+                                                             model_to_vec)
+    m = dataclasses.replace(model)
+    m.thresh = -1e9
+    layout = BlockLayout.for_model(m)
+    w = model_to_vec(m, layout)[0]
+    det = Detector(m, k_per_level=8, compose="correct", device="cuda")
+    worst, n = 0.0, 0
+    for s in held:
+        feats = det.pyramid_features(s.image)
+        for d in det.detect(s.image, max_detections=10):
+            worst = max(worst, abs(float(w @ detection_feature(
+                m, layout, d, feats)) - d.score))
+            n += 1
+    log(f"train: feature invariant on {n} held-out detections of the "
+        f"trained person-26: max |w . x - score| {worst:.3g} (limit 5e-3)")
+    if n == 0 or not worst < 5e-3:
+        raise RuntimeError("train: w . detection_feature != score")
+
+
+def phase_train(smi: str) -> dict:
+    """9. Training on the card; returns the walk launches per call of
+    each training detect."""
+    phase_train_small()
+    model, train, neg, held = train_person26("cuda", smi)
+    paths = phase_train_paths(model, train, neg)
+    phase_train_invariant(model, held)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on "
@@ -1496,6 +1919,7 @@ def main() -> int:
     phase_multires(frames)
     phase_nms(all_c, kern["rootv"])
     paths.update(phase_serving(smi))
+    paths.update(phase_train(smi))
     log(json.dumps({"kernels": [{
         "name": "walk_tree", "route": "cuda",
         "source": "partsbaseddetector_tpu_torch/csrc/walk.cu",

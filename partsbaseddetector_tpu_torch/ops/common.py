@@ -37,11 +37,11 @@ def cv_round(x: torch.Tensor) -> torch.Tensor:
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     """The port's device rule: ``None`` means CUDA.  Without a CUDA
-    device that is an error, never a silent fall back to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device=\"cpu\" to run "
-                "the port on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    device that is an error (for ``None`` and for an explicit "cuda"),
+    never a silent fall back to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device=\"cpu\" to run "
+            "the port on the CPU")
+    return device

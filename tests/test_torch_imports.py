@@ -40,7 +40,12 @@ def test_port_has_the_slice_modules():
                  "models.matio", "models.npzio", "utils.viz",
                  "infer.stream", "frontends.messages", "frontends.ros_node",
                  "frontends.ecto_cell", "frontends.ork_config",
-                 "tools.demo"):
+                 "tools.demo", "oracle.reference", "train.vectorize",
+                 "train.qp", "train.cluster", "train.build",
+                 "train.features", "train.trainer", "tools.datasets",
+                 "tools.train", "tools.evaluate", "tools.model_transfer",
+                 "tools.annotate", "utils.eval",
+                 "models.transfer_formats"):
         assert f"partsbaseddetector_tpu_torch.{name}" in mods, name
     assert (REPO / "partsbaseddetector_tpu_torch/csrc/walk.cu").is_file()
 
@@ -71,18 +76,21 @@ def test_importing_the_port_loads_no_jax():
         "m.startswith('partsbaseddetector_tpu.')]\n"
         "print(json.dumps({'n': len(mods), 'bad': bad}))\n")
     res = _run(code)
-    assert res["n"] >= 38
+    assert res["n"] >= 54
     assert res["bad"] == []
 
 
 def test_the_port_imports_without_pil_and_yaml():
-    """Neither PIL nor PyYAML is on the card machine: every port module
-    imports with both blocked; only the overlay, the demo's image files
-    and the ORK parser need them, inside the functions that use them."""
+    """Neither PIL, PyYAML nor matplotlib is on the card machine: every
+    port module imports with the three blocked; only the overlay and the
+    training views, the demo's image files, the PARSE loader, the ORK
+    parser and the annotator need them, inside the functions that use
+    them."""
     code = (
         "import importlib, json, sys\n"
         "sys.modules['PIL'] = None\n"
         "sys.modules['yaml'] = None\n"
+        "sys.modules['matplotlib'] = None\n"
         f"mods = {_port_modules()!r}\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
