@@ -32,9 +32,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. end to end, kernel walk vs plain walk: the same batch with
      walk_impl="torch" gives equal Candidates;
   6. times at B=8: ms/frame and frames/s (median of 7 batches), per-stage
-     device ms (CUDA events at stage boundaries), peak device memory,
-     and one batch under torch.profiler: the device's busy and idle
-     share and the kernels that take the most device time;
+     device ms (the package's utils/profiling.CudaStageTimer: CUDA
+     events at the detector's stage hook), peak device memory, and one
+     batch under torch.profiler (utils/profiling.device_trace and
+     device_busy): the device's busy and idle share and the kernels
+     that take the most device time;
   7. the slice-3 paths, each path that ends in the walk kernel with the
      kernel's launch count set to 0 just before it and read just after
      (expected: one launch per dp group and component), ms/frame and
@@ -82,7 +84,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      (4) |w . detection_feature - score| < 5e-3 on held-out detections;
      (5) the cost: seconds by stage and by kind of call (detect,
      pyramid_features, host QP), peak device memory;
- 10. the kernels line (JSON; launches per path beside the main path's),
+ 10. face-68 at full width: synthetic.face_like() (68 parts x 4
+     mixtures, 272 filters, interval 5, dp_split 3), thresh 0.0, on the
+     8 frames of phase 4 (B=8): walk launches per dispatch (one per dp
+     group and component), shapes and order, kernel walk == plain walk
+     end to end (phase 5's twin), card vs CPU at 120x160 under the
+     cross-engine contract, and phase 6's times;
+ 11. parallel/ at world size 1, person-26 at 640x480: BatchDetector on a
+     (1, 1) mesh (B=8), ScaleShardedDetector on a (1, 1) scale mesh (one
+     frame) and PipelinedDetector with front = back = cuda:0 (a stream
+     of 2 frames), each equal to Detector on all Candidates fields, with
+     its walk launches counted and its ms/frame;
+ 12. StreamingDetector(mesh=make_mesh()) at world size 1: process_batch
+     and stream (B=8) and process give the detections of the
+     StreamingDetector without a mesh;
+ 13. the kernels line (JSON; launches per path beside the main path's),
      the card line, then the last line {"ok": true, "device": {...}}.
 
 It imports torch, numpy and the port only.
@@ -648,7 +664,14 @@ def phase_plain_walk_end_to_end(model, frames, cands) -> None:
 
 
 # ---------------------------------------------------------------- phase 6
-def phase_times(det, frames, smi: str) -> None:
+def phase_times(det, frames, smi: str, what: str = "") -> dict:
+    """ms/frame and frames/s at B=8 (median of 7 batches, host clock to
+    a synchronize), the device timeline (CUDA events around the batch),
+    per-stage device ms (utils/profiling.CudaStageTimer at the
+    detector's stage hook), peak memory and one batch under
+    torch.profiler (utils/profiling.device_busy).  what: a prefix for
+    the printed lines."""
+    from partsbaseddetector_tpu_torch.utils.profiling import CudaStageTimer
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
@@ -667,82 +690,48 @@ def phase_times(det, frames, smi: str) -> None:
         dev.append(a.elapsed_time(b))
     peak = torch.cuda.max_memory_allocated()
     ms_batch = statistics.median(wall)
-    log(f"B={BATCH}: {ms_batch / BATCH:.3f} ms/frame, "
+    log(f"{what}B={BATCH}: {ms_batch / BATCH:.3f} ms/frame, "
         f"{1e3 * BATCH / ms_batch:.2f} frames/s (median of 7 batches, "
         f"host clock to synchronize; batch ms {sorted(wall)}) "
         f"[{smi}]")
-    log(f"B={BATCH}: device-timeline ms/batch (CUDA events) median "
+    log(f"{what}B={BATCH}: device-timeline ms/batch (CUDA events) median "
         f"{statistics.median(dev):.3f}")
-
-    stages: dict = {}
-    pending = []
-
-    class Stage:
-        def __init__(self, name):
-            self.name = name
-
-        def __enter__(self):
-            self.a = torch.cuda.Event(enable_timing=True)
-            self.a.record()
-
-        def __exit__(self, *exc):
-            b = torch.cuda.Event(enable_timing=True)
-            b.record()
-            pending.append((self.name, self.a, b))
-            return False
-
-    det.detect_batch_raw(frames, stage=Stage)
-    torch.cuda.synchronize()
-    for name, a, b in pending:
-        stages[name] = stages.get(name, 0.0) + a.elapsed_time(b)
-    log("per-stage ms per batch (CUDA events at stage boundaries, launch "
-        "gaps included): " + ", ".join(f"{k} {v:.3f}"
-                                       for k, v in stages.items()))
-    log(f"peak device memory (max_memory_allocated): {peak} B "
+    timer = CudaStageTimer()
+    det.detect_batch_raw(frames, stage=timer.stage)
+    stages = timer.totals_ms()
+    log(f"{what}per-stage ms per batch (CUDA events at stage boundaries, "
+        "launch gaps included): " + ", ".join(f"{k} {v:.3f}"
+                                              for k, v in stages.items()))
+    log(f"{what}peak device memory (max_memory_allocated): {peak} B "
         f"({peak / 2**30:.2f} GiB)")
-    phase_device_trace(det, frames)
+    trace = phase_device_trace(det, frames, what)
+    return dict(ms_frame=ms_batch / BATCH, stages=stages, peak=peak,
+                trace=trace)
 
 
-def phase_device_trace(det, frames) -> None:
+def phase_device_trace(det, frames, what: str = ""):
     """One B=8 batch under torch.profiler: the share of the batch's
     device span in which some kernel runs, and the kernels that take
     the most device time.  The profiler adds host work per launch, so
     the idle share it shows is an upper bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from partsbaseddetector_tpu_torch.utils.profiling import (device_busy,
+                                                              device_trace)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         det.detect_batch_raw(frames)
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if not spans:
-        log("device trace: not measured (the profiler recorded no "
+    got = device_busy(prof.events())
+    if got is None:
+        log(f"{what}device trace: not measured (the profiler recorded no "
             "device kernels)")
-        return
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s0, e0 in spans[1:]:
-        if s0 > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s0, e0
-        else:
-            cur_e = max(cur_e, e0)
-    busy += cur_e - cur_s
-    span = max(e for _, e in spans) - spans[0][0]
-    log(f"device trace (torch.profiler, one B={BATCH} batch): "
-        f"{len(spans)} device kernels, busy {busy / 1e3:.3f} ms of a "
-        f"{span / 1e3:.3f} ms span, idle share {1 - busy / span:.3f}")
-    per_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            d = per_name.setdefault(e.name, [0.0, 0])
-            d[0] += e.time_range.end - e.time_range.start
-            d[1] += 1
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]
-    for name, (us, n) in top:
-        log(f"  {us / 1e3:9.3f} ms  {n:6d}x  {name[:90]}")
+        return None
+    log(f"{what}device trace (torch.profiler, one B={BATCH} batch): "
+        f"{got['kernels']} device kernels, busy {got['busy_ms']:.3f} ms of "
+        f"a {got['span_ms']:.3f} ms span, idle share "
+        f"{got['idle_share']:.3f}")
+    for name, ms, n in got["top"]:
+        log(f"  {ms:9.3f} ms  {n:6d}x  {name[:90]}")
+    return got
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1890,6 +1879,140 @@ def phase_train(smi: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------- phase 10
+def phase_face68(frames, smi: str) -> int:
+    """10. Face-68 at full width: synthetic.face_like() (68 parts x 4
+    mixtures, 272 filters, interval 5, so dp_split 3), thresh 0.0, on the
+    main path's 8 frames (640x480 uint8, B=8, spatial conv, compose
+    "reference", K=64): walk launches (one per dp group and component),
+    shapes and order, kernel walk == plain walk end to end (the twin of
+    phase 5), card vs CPU at 120x160 under the cross-engine contract,
+    and the times of phase 6.  Returns the launches per dispatch."""
+    from partsbaseddetector_tpu_torch.infer.detector import (Detector,
+                                                             _dp_groups)
+    from partsbaseddetector_tpu_torch.models import synthetic
+    model = synthetic.face_like()
+    model.thresh = 0.0
+    det = Detector(model, k_per_level=K, device="cuda")
+    plan = det.plan_for(IMG)
+    ngroups = sum(len(_dp_groups(b, det.dp_split)) for b in plan.buckets)
+    P = model.components[0].nparts
+    log(f"face-68: {P} parts x {det.packed.components[0].maxmix} "
+        f"mixtures, {model.nfilters} filters, interval {model.interval}, "
+        f"dp_split {det.dp_split}; {len(plan.levels)} levels in "
+        f"{len(plan.buckets)} buckets, {ngroups} dp groups")
+    cands, n = counted(lambda: det.detect_batch_raw(frames))
+    expect_launches(f"face-68, B={BATCH} ({ngroups} dp groups x "
+                    f"{len(det.packed.components)} component)", n,
+                    expected_launches(det, IMG))
+    check_candidates(cands, len(plan.levels), P)
+    log(f"face-68: valid candidates per frame (thresh 0.0): "
+        f"{cands.valid.sum(1).tolist()}")
+    plain = Detector(model, k_per_level=K, device="cuda", walk_impl="torch")
+    equal_candidates(cands, plain.detect_batch_raw(frames),
+                     "face-68: kernel walk vs plain walk, end to end")
+    del plain
+    m8 = synthetic.face_like()
+    m8.thresh = -1e9
+    det8 = Detector(m8, k_per_level=8, device="cuda")
+    small = small_frame()
+    contract_vs_cpu(det8.detect_raw(small),
+                    Detector(m8, k_per_level=8, device="cpu").detect_raw(
+                        small), 8, det8.plan_for(SMALL).levels,
+                    what="face-68: card vs CPU at 120x160")
+    phase_times(det, frames, smi, "face-68: ")
+    return n
+
+
+# ---------------------------------------------------------------- phase 11
+def phase_parallel(model, frames, cands) -> dict:
+    """11. parallel/ at world size 1 on person-26 (thresh 0.0),
+    640x480: BatchDetector on a (1, 1) mesh at B=8 == the main path's
+    Candidates; ScaleShardedDetector on a (1, 1) mesh on frame 0 ==
+    Detector(dp_split=1); PipelinedDetector with front = back = cuda:0
+    streaming frames 0-1 == Detector.detect_raw of each.  Each with the
+    walk's launch count set to 0 just before and read just after.
+    Returns the launches of each."""
+    from partsbaseddetector_tpu_torch.infer.detector import Detector
+    from partsbaseddetector_tpu_torch.parallel import (BatchDetector,
+                                                       make_mesh)
+    from partsbaseddetector_tpu_torch.parallel.pipeline import \
+        PipelinedDetector
+    from partsbaseddetector_tpu_torch.parallel.scale_sharded import (
+        ScaleShardedDetector, make_scale_mesh)
+    out = {}
+    bdet = BatchDetector(model, make_mesh(), k_per_level=K)
+    got, n = counted(lambda: bdet.detect_batch(frames))
+    expect_launches(f"BatchDetector (1, 1), B={BATCH}", n,
+                    expected_launches(bdet, IMG))
+    equal_candidates(got, cands,
+                     f"BatchDetector (1, 1) vs Detector, B={BATCH}")
+    out["batch_sharded"] = n
+    report(f"BatchDetector (1, 1), B={BATCH}",
+           lambda: bdet.detect_batch(frames), BATCH)
+
+    sdet = ScaleShardedDetector(model, make_scale_mesh(), k_per_level=K)
+    one = frames[0]
+    got, n = counted(lambda: sdet.detect_raw(one))
+    expect_launches("ScaleShardedDetector (1, 1), one frame", n,
+                    len(sdet.plan_for(IMG).buckets)
+                    * len(sdet.packed.components))
+    ref = Detector(model, k_per_level=K, dp_split=1, device="cuda")
+    equal_candidates(got, ref.detect_raw(one),
+                     "ScaleShardedDetector (1, 1) vs Detector(dp_split=1)")
+    out["scale_sharded"] = n
+    report("ScaleShardedDetector (1, 1), one frame",
+           lambda: sdet.detect_raw(one), 1)
+
+    pdet = PipelinedDetector(model, "cuda:0", "cuda:0", k_per_level=K)
+    two = [frames[0], frames[1]]
+    got, n = counted(lambda: list(pdet.stream(two)))
+    single = Detector(model, k_per_level=K, device="cuda")
+    expect_launches("PipelinedDetector (cuda:0, cuda:0), stream of 2", n,
+                    2 * expected_launches(single, IMG))
+    for i, f in enumerate(two):
+        equal_candidates(got[i], single.detect_raw(f),
+                         f"PipelinedDetector vs Detector, frame {i}")
+    out["pipelined"] = n // 2
+    report("PipelinedDetector (cuda:0, cuda:0), stream of 2",
+           lambda: list(pdet.stream(two)), 2)
+    report("Detector.detect_raw, 2 frames (the pipeline's baseline)",
+           lambda: [single.detect_raw(f) for f in two], 2)
+    return out
+
+
+# ---------------------------------------------------------------- phase 12
+def phase_stream_mesh(model, frames) -> dict:
+    """12. StreamingDetector(mesh=make_mesh()) at world size 1, person-26
+    (thresh 0.0), the main path's 8 frames: process_batch and stream
+    (batch 8) give the detections of the StreamingDetector without a
+    mesh; process (one frame, replicated over the data axis) too.
+    Returns the launches per dispatch."""
+    from partsbaseddetector_tpu_torch.infer.stream import StreamingDetector
+    from partsbaseddetector_tpu_torch.parallel import make_mesh
+    rgbs = frames.cpu().numpy()
+    plain = StreamingDetector(model, k_per_level=K, device="cuda")
+    meshed = StreamingDetector(model, mesh=make_mesh(), k_per_level=K)
+    got, n = counted(lambda: meshed.process_batch(rgbs))
+    expect_launches(f"StreamingDetector(mesh=(1, 1)).process_batch, "
+                    f"B={BATCH}", n, expected_launches(meshed.detector, IMG))
+    ref = plain.process_batch(rgbs)
+    streamed = list(meshed.stream(list(rgbs), batch=BATCH))
+    ndet = 0
+    for j in range(BATCH):
+        same_detections(got[j].detections, ref[j].detections,
+                        f"mesh process_batch, frame {j}", 0.0)
+        same_detections(streamed[j].detections, ref[j].detections,
+                        f"mesh stream, frame {j}", 0.0)
+        ndet += len(ref[j].detections)
+    same_detections(meshed.process(rgbs[0]).detections,
+                    plain.process(rgbs[0]).detections, "mesh process", 0.0)
+    log(f"StreamingDetector(mesh=(1, 1)): process_batch == stream == "
+        f"without a mesh on {BATCH} frames ({ndet} detections), process "
+        f"too")
+    return {"stream_mesh": n}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on "
@@ -1920,6 +2043,9 @@ def main() -> int:
     phase_nms(all_c, kern["rootv"])
     paths.update(phase_serving(smi))
     paths.update(phase_train(smi))
+    paths["face68"] = phase_face68(frames, smi)
+    paths.update(phase_parallel(model, frames, cands))
+    paths.update(phase_stream_mesh(model, frames))
     log(json.dumps({"kernels": [{
         "name": "walk_tree", "route": "cuda",
         "source": "partsbaseddetector_tpu_torch/csrc/walk.cu",

@@ -67,11 +67,10 @@ class PartsBasedDetectorCell:
         params.setdefault("compose", None)
         params.setdefault("device", None)        # None = CUDA
         params.setdefault("depth_prune", None)   # {part_width_m,fx,tol}
-        # declared so that a config naming them reaches configure, which
-        # refuses them: aot_dir is not carried by the port, mesh serving
-        # is not ported yet
+        params.setdefault("mesh", None)          # [data, filter] sizes
+        # declared so that a config naming it reaches configure, which
+        # refuses it: aot_dir is not carried by the port
         params.setdefault("aot_dir", None)
-        params.setdefault("mesh", None)
 
     @staticmethod
     def declare_io(params: dict, inputs: dict, outputs: dict) -> None:
@@ -85,7 +84,7 @@ class PartsBasedDetectorCell:
     def configure(self, params: dict, inputs: dict,
                   outputs: dict) -> None:
         """Load the model and keep the detector-facade knobs; an unknown
-        key, ``aot_dir`` or ``mesh`` raises (ros_node.detector_kwargs).
+        key or ``aot_dir`` raises (ros_node.detector_kwargs).
         """
         from partsbaseddetector_tpu_torch.models import load_any
 

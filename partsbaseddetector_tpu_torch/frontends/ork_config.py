@@ -33,8 +33,8 @@ from partsbaseddetector_tpu_torch.frontends.ecto_cell import \
 DECLARED_PARAMS = ("visualize", "remove_planes", "model_file",
                    "max_overlap",
                    # facade knobs (frontends reach the full framework:
-                   # multires routing, the device); aot_dir and mesh are
-                   # declared so that the cell refuses them by name
+                   # multires routing, the device, mesh serving); aot_dir
+                   # is declared so that the cell refuses it by name
                    "k_per_level", "conv_engine", "walk_impl", "dp_split",
                    "compose", "device", "aot_dir", "mesh", "depth_prune")
 

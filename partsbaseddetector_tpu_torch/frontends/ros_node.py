@@ -29,8 +29,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from partsbaseddetector_tpu_torch.frontends import messages as msgs
-from partsbaseddetector_tpu_torch.infer.stream import (MESH_NOT_PORTED,
-                                                       StreamingDetector)
+from partsbaseddetector_tpu_torch.infer.stream import StreamingDetector
 from partsbaseddetector_tpu_torch.post.depth import CameraModel
 
 #: the detector-facade keys both frontends accept in their parameters
@@ -42,14 +41,14 @@ def detector_kwargs(params: dict, own: Sequence[str]) -> dict:
     """StreamingDetector keyword arguments from a frontend's parameter
     dict.  own: the frontend's other keys.  An unknown key raises
     ValueError, as does ``aot_dir`` (the XLA executable cache, not
-    carried by the port: ROADMAP.md queue 1 item 20); ``mesh`` raises
-    NotImplementedError until the parallel paths are ported."""
+    carried by the port: ROADMAP.md queue 1 item 20).  ``mesh`` is a
+    parallel.mesh.Mesh or its [data, filter] sizes, built with
+    make_mesh on ``device`` (ValueError unless they match the world
+    size)."""
     unknown = sorted(set(params) - set(own) - set(FACADE_PARAMS))
     if unknown:
         raise ValueError(f"unknown parameter(s) {unknown}; known: "
                          f"{sorted(set(own) | set(FACADE_PARAMS))}")
-    if params.get("mesh") is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     if params.get("aot_dir") is not None:
         raise ValueError("aot_dir is not carried by the port: eager "
                          "torch has no executable to cache (ROADMAP.md "
@@ -61,6 +60,14 @@ def detector_kwargs(params: dict, own: Sequence[str]) -> dict:
     for k in ("conv_engine", "walk_impl", "compose", "device"):
         if params.get(k) is not None:
             kw[k] = str(params[k])
+    if params.get("mesh") is not None:
+        m = params["mesh"]
+        if isinstance(m, (list, tuple)):
+            from partsbaseddetector_tpu_torch.parallel.mesh import \
+                make_mesh
+            m = make_mesh(tuple(int(x) for x in m),
+                          device=kw.get("device"))
+        kw["mesh"] = m
     if params.get("depth_prune") is not None:
         from partsbaseddetector_tpu_torch.infer.detector import DepthPrune
         dp = params["depth_prune"]
@@ -227,10 +234,10 @@ class PartsBasedDetectorNode:
         max_overlap, ns, name — plus the detector-facade surface:
         k_per_level (int), conv_engine ("spatial"|"fft"), walk_impl
         ("auto"|"cuda"|"torch"), dp_split (int), compose, device (None
-        = CUDA) and depth_prune ({part_width_m, fx, tol} — depth-based
-        response pruning).  ``mesh`` raises NotImplementedError until
-        the parallel paths are ported, ``aot_dir`` and unknown keys
-        raise ValueError (detector_kwargs)."""
+        = CUDA), depth_prune ({part_width_m, fx, tol} — depth-based
+        response pruning) and mesh ([data, filter] axis sizes — serve on
+        a mesh of torch.distributed ranks).  ``aot_dir`` and unknown
+        keys raise ValueError (detector_kwargs)."""
         from partsbaseddetector_tpu_torch.models import load_any
 
         if "model" not in params:

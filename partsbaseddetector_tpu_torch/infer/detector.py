@@ -33,7 +33,9 @@ from partsbaseddetector_tpu_torch.models.part_tree import (PackedModel,
 from partsbaseddetector_tpu_torch.models.schema import PartsModel
 from partsbaseddetector_tpu_torch.ops import argmax as argmax_ops
 from partsbaseddetector_tpu_torch.ops.common import NEG, resolve_device
-from partsbaseddetector_tpu_torch.ops.conv import CONV_ENGINES
+# CONV_ENGINES is re-exported: the engines by name, as the JAX package's
+# infer/detector exports them
+from partsbaseddetector_tpu_torch.ops.conv import CONV_ENGINES  # noqa: F401
 from partsbaseddetector_tpu_torch.ops.dp import dp_min_levels
 from partsbaseddetector_tpu_torch.ops.hog import hog_features
 from partsbaseddetector_tpu_torch.ops.imageops import pyr_down, resize_linear
@@ -174,7 +176,8 @@ def _ladder_hog(images: torch.Tensor, plan: PyramidPlan, norient: int,
 
 def pyramid_pdfs(images: torch.Tensor, packed: PackedModel,
                  plan: PyramidPlan, conv_engine: str = "spatial",
-                 stage: StageTimer = _no_stage):
+                 stage: StageTimer = _no_stage,
+                 pdfs_transform: Optional[Callable] = None):
     """Stages 1-2 for every bucket (ladder + HOG + filter-bank conv).
 
     images: (B, H, W, C) frames on the model's device, any real dtype
@@ -186,7 +189,10 @@ def pyramid_pdfs(images: torch.Tensor, packed: PackedModel,
     (dp_min_levels(true_sizes=...)), value-identical to the JAX
     package's masking of the FFT responses
     (partsbaseddetector_tpu/infer/detector.py:191-199).  conv_engine:
-    "spatial" or "fft" (ops/conv.CONV_ENGINES)."""
+    "spatial" or "fft" (ops/conv.CONV_ENGINES).  pdfs_transform:
+    optional fn(pdfs) applied to each bucket's responses after the conv
+    (the filter-sharded paths all-gather their bank's output channels
+    with it, parallel/mesh.Mesh.gather_filters)."""
     conv = CONV_ENGINES[conv_engine]
     dev = images.device
     B = images.shape[0]
@@ -199,6 +205,8 @@ def pyramid_pdfs(images: torch.Tensor, packed: PackedModel,
                                   dtype=torch.int32, device=dev)
             pdfs = conv(feats, packed.bank,
                         true_size=tsizes.repeat(B, 1)).unflatten(0, (B, L))
+            if pdfs_transform is not None:
+                pdfs = pdfs_transform(pdfs)
         scales = torch.tensor([lvl.scale for lvl in bucket.levels],
                               dtype=torch.float32, device=dev)
         out.append((bucket, pdfs, tsizes, scales))
@@ -236,8 +244,9 @@ def dp_backtrack_bucket(bucket, pdfs, tsizes, scales,
     group, component) DP + backtracking, with the batch folded into the
     level axis (every level is independent).  pdfs: (B, L, fh, fw, F);
     bmask: optional (L, P, fh, fw) bool part placement masks, the same
-    for every frame, sliced per group as the JAX package does
-    (partsbaseddetector_tpu/infer/detector.py:301).
+    for every frame, or (B, L, P, fh, fw), one set per frame (the
+    batched masked search, parallel/sharded.py), sliced per group as the
+    JAX package does (partsbaseddetector_tpu/infer/detector.py:301).
     Returns per group a Candidates with fields (B, Lg*k, ...)."""
     B = pdfs.shape[0]
     dev = pdfs.device
@@ -248,8 +257,12 @@ def dp_backtrack_bucket(bucket, pdfs, tsizes, scales,
         gpdfs = pdfs[:, lo:hi, :gfh, :gfw].flatten(0, 1)   # (B*Lg, ...)
         gsizes = tsizes[lo:hi].repeat(B, 1)
         gscales = scales[lo:hi].repeat(B)
-        gmask = None if bmask is None else \
-            bmask[lo:hi, :, :gfh, :gfw].repeat(B, 1, 1, 1)
+        if bmask is None:
+            gmask = None
+        elif bmask.ndim == 5:
+            gmask = bmask[:, lo:hi, :, :gfh, :gfw].flatten(0, 1)
+        else:
+            gmask = bmask[lo:hi, :, :gfh, :gfw].repeat(B, 1, 1, 1)
         # levels run b-major; each frame's level indices restart
         levels = (torch.arange(lo, hi, dtype=torch.int32, device=dev)
                   + bucket.levels[0].index).repeat(B)
@@ -278,12 +291,50 @@ def dp_backtrack_bucket(bucket, pdfs, tsizes, scales,
     return out
 
 
+def _stage12(images: torch.Tensor, packed: PackedModel, plan: PyramidPlan,
+             conv_engine: str = "spatial", stage: StageTimer = _no_stage,
+             depth=None, depth_cfg: Optional[DepthPrune] = None,
+             pdfs_transform: Optional[Callable] = None):
+    """Stages 1-2 of the detection program: pyramid_pdfs, then the
+    optional depth pruning (responses at implausible depths become NEG).
+    Returns pyramid_pdfs' list of (bucket, pdfs, tsizes, scales)."""
+    out = pyramid_pdfs(images, packed, plan, conv_engine, stage=stage,
+                       pdfs_transform=pdfs_transform)
+    if depth is not None and depth_cfg is not None:
+        for bucket, pdfs, _, _ in out:
+            bad = _depth_bad_mask(depth, bucket, depth_cfg)
+            pdfs.masked_fill_(bad[..., None], NEG)
+    return out
+
+
+def _stage34(per_bucket, packed: PackedModel, k_per_level: int,
+             compose: str, dp_split: int = 1, walk_impl: str = "cuda",
+             stage: StageTimer = _no_stage, part_masks=None
+             ) -> argmax_ops.Candidates:
+    """Stages 3-4 of the detection program on _stage12's output: the DP
+    and the walk per (bucket, dp group, component), then one stable
+    sort per frame.  part_masks: optional per-bucket masks
+    (dp_backtrack_bucket's bmask)."""
+    all_cands: List[argmax_ops.Candidates] = []
+    # padded cells are masked in the DP (dp_min_levels(true_sizes=...))
+    # for both conv engines
+    for bucket, pdfs, tsizes, scales in per_bucket:
+        bmask = None if part_masks is None else part_masks[bucket.octave]
+        all_cands.extend(dp_backtrack_bucket(
+            bucket, pdfs, tsizes, scales, packed, k_per_level, compose,
+            dp_split, walk_impl, bmask, stage))
+    with stage("seeds+sort"):
+        return argmax_ops.sort_candidates(
+            argmax_ops.concat_candidates(all_cands))
+
+
 def _detect_program(images: torch.Tensor, packed: PackedModel,
                     plan: PyramidPlan, k_per_level: int, compose: str,
                     dp_split: int = 1, walk_impl: str = "cuda",
                     stage: StageTimer = _no_stage, depth=None,
                     depth_cfg: Optional[DepthPrune] = None,
-                    part_masks=None, conv_engine: str = "spatial"
+                    part_masks=None, conv_engine: str = "spatial",
+                    pdfs_transform: Optional[Callable] = None
                     ) -> argmax_ops.Candidates:
     """The full detection program for a (B, H, W, C) batch of frames;
     returns Candidates with fields (B, nlevels*k, ...), each frame's
@@ -292,22 +343,13 @@ def _detect_program(images: torch.Tensor, packed: PackedModel,
     depth + depth_cfg: optional (B, dh, dw) float32 depth maps and the
     pruning config: responses at implausible depths become NEG before
     the DP.  part_masks: optional per-bucket (L, P, fh, fw) bool masks of
-    allowed part placements (the latent-positive search)."""
-    all_cands: List[argmax_ops.Candidates] = []
-    # padded cells are masked in the DP (dp_min_levels(true_sizes=...))
-    # for both conv engines
-    for bucket, pdfs, tsizes, scales in pyramid_pdfs(
-            images, packed, plan, conv_engine, stage=stage):
-        if depth is not None and depth_cfg is not None:
-            bad = _depth_bad_mask(depth, bucket, depth_cfg)
-            pdfs = pdfs.masked_fill_(bad[..., None], NEG)
-        bmask = None if part_masks is None else part_masks[bucket.octave]
-        all_cands.extend(dp_backtrack_bucket(
-            bucket, pdfs, tsizes, scales, packed, k_per_level, compose,
-            dp_split, walk_impl, bmask, stage))
-    with stage("seeds+sort"):
-        return argmax_ops.sort_candidates(
-            argmax_ops.concat_candidates(all_cands))
+    allowed part placements (the latent-positive search), or
+    (B, L, P, fh, fw) ones per frame.  pdfs_transform: see
+    pyramid_pdfs."""
+    per_bucket = _stage12(images, packed, plan, conv_engine, stage, depth,
+                          depth_cfg, pdfs_transform)
+    return _stage34(per_bucket, packed, k_per_level, compose, dp_split,
+                    walk_impl, stage, part_masks)
 
 
 def check_conv_engine(conv_engine: str) -> str:
@@ -380,6 +422,16 @@ class Detector:
             walk_impl = "cuda" if self.device.type == "cuda" else "torch"
         self.walk_impl = walk_impl
         self._plans: Dict[Tuple[int, int], PyramidPlan] = {}
+
+    @classmethod
+    def from_config(cls, model: PartsModel, cfg) -> "Detector":
+        """Build from a config.RuntimeConfig (the unified typed config;
+        partsbaseddetector_tpu/infer/detector.py:403-411), its
+        ``device`` included."""
+        return cls(model, k_per_level=cfg.k_per_level,
+                   compose=cfg.compose, dp_split=cfg.dp_split,
+                   conv_engine=cfg.conv_engine, walk_impl=cfg.walk_impl,
+                   device=cfg.device)
 
     def plan_for(self, imshape: Tuple[int, int]) -> PyramidPlan:
         key = (int(imshape[0]), int(imshape[1]))

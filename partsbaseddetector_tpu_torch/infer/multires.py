@@ -143,32 +143,35 @@ def _walk_levels(rootv, rooti, scores, tmps, comp: PackedComponent,
                                          levels)
 
 
-def _multires_program(image: torch.Tensor, packed: PackedModel,
-                      plan: PyramidPlan, k_per_level: int, depth=None,
+def _multires_stage12(image: torch.Tensor, packed: PackedModel,
+                      plan: PyramidPlan, depth=None,
                       depth_cfg: Optional[DepthPrune] = None,
-                      conv_engine: str = "spatial", part_masks=None
-                      ) -> argmax_ops.Candidates:
-    """The multi-resolution detection program for one (H, W, C) frame.
-
-    depth + depth_cfg: optional (dh, dw) float32 depth map and pruning
-    config, per-bucket response pruning before the DP as on the
-    single-resolution path.  part_masks: optional per-bucket
-    (L_b, P, fh_b, fw_b) bool allowed-placement masks (see
-    _dp_multires).  Returns Candidates (nlevels*k, ...) sorted by score,
-    invalid last."""
+                      conv_engine: str = "spatial", pdfs_transform=None):
+    """Stages 1-2 for one (H, W, C) frame: the single-resolution
+    detector's, with the optional per-bucket depth pruning.  Returns per
+    bucket (bucket, pdfs (L_b, fh_b, fw_b, F), tsizes, scales)."""
     per_bucket = []
     for b, pdfs, ts, sc in pyramid_pdfs(image[None], packed, plan,
-                                        conv_engine):
+                                        conv_engine,
+                                        pdfs_transform=pdfs_transform):
         if depth is not None and depth_cfg is not None:
             bad = _depth_bad_mask(depth[None], b, depth_cfg)
             pdfs = pdfs.masked_fill_(bad[..., None], NEG)
         per_bucket.append((b, pdfs[0], ts, sc))
+    return per_bucket
+
+
+def _multires_stage34(per_bucket, packed: PackedModel, k_per_level: int,
+                      part_masks=None) -> argmax_ops.Candidates:
+    """Stages 3-4 for one frame on _multires_stage12's output: per root
+    bucket and component the cross-octave DP and walk, then one stable
+    sort."""
     smax = max((max(sc) for sc in packed.scale_static), default=0)
     all_cands: List[argmax_ops.Candidates] = []
-    for o in range(smax, len(plan.buckets)):
-        bkt, _, tsizes_o, _ = per_bucket[o]
+    for o in range(smax, len(per_bucket)):
+        bkt, pdfs_o, tsizes_o, _ = per_bucket[o]
         L = len(bkt.levels)
-        levels = (torch.arange(L, dtype=torch.int32, device=image.device)
+        levels = (torch.arange(L, dtype=torch.int32, device=pdfs_o.device)
                   + bkt.levels[0].index)
         for c, comp in enumerate(packed.components):
             pscales = packed.scale_static[c]
@@ -184,6 +187,25 @@ def _multires_program(image: torch.Tensor, packed: PackedModel,
                 packed.thresh, tsizes_o, pscl, k_per_level, c, levels))
     return argmax_ops.sort_candidates(
         argmax_ops.concat_candidates(all_cands))
+
+
+def _multires_program(image: torch.Tensor, packed: PackedModel,
+                      plan: PyramidPlan, k_per_level: int, depth=None,
+                      depth_cfg: Optional[DepthPrune] = None,
+                      conv_engine: str = "spatial", part_masks=None,
+                      pdfs_transform=None) -> argmax_ops.Candidates:
+    """The multi-resolution detection program for one (H, W, C) frame.
+
+    depth + depth_cfg: optional (dh, dw) float32 depth map and pruning
+    config, per-bucket response pruning before the DP as on the
+    single-resolution path.  part_masks: optional per-bucket
+    (L_b, P, fh_b, fw_b) bool allowed-placement masks (see
+    _dp_multires).  pdfs_transform: see infer/detector.pyramid_pdfs.
+    Returns Candidates (nlevels*k, ...) sorted by score, invalid
+    last."""
+    per_bucket = _multires_stage12(image, packed, plan, depth, depth_cfg,
+                                   conv_engine, pdfs_transform)
+    return _multires_stage34(per_bucket, packed, k_per_level, part_masks)
 
 
 class MultiResDetector:

@@ -179,6 +179,13 @@ def concat_candidates(cands: Sequence[Candidates]) -> Candidates:
         for f in _FIELDS})
 
 
+def stack_candidates(outs: Sequence[Candidates]) -> Candidates:
+    """Per-frame Candidates stacked into one with a leading (B, ...)
+    axis, field by field."""
+    return Candidates(**{f: torch.stack([getattr(o, f) for o in outs])
+                         for f in _FIELDS})
+
+
 def sort_candidates(c: Candidates) -> Candidates:
     """Descending by score, invalid last (score of invalid forced to
     -inf for ordering), stable — the deterministic replacement for

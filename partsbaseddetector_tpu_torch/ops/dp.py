@@ -263,3 +263,31 @@ def walk_children(scores_p: torch.Tensor, tmp_p: torch.Tensor,
         row = scores_p[li, mcl, y.long()]
         _, x = _dt_vals_at(row, wm[..., 0], wm[..., 1], pxf, am[..., 0])
     return x, y, mc
+
+
+def composed_tables(res: DPResult, comp: PackedComponent,
+                    compose: str = "reference"):
+    """Full (P, M, H, W) int32 Ix/Iy/Ik tables for one level's DPResult
+    (dp_min's, fields without the level axis): for every part p > 0,
+    parent mixture m and parent cell (y, x), the child's x, y and
+    mixture as walk_children recomputes them (the port of
+    partsbaseddetector_tpu/ops/dp.py:326-344; a test and debug helper,
+    the reference a DP kernel's argmaxes are held to — no hot path
+    builds these).  Part 0's rows stay zero."""
+    P, M = comp.filterid.shape
+    H, W = res.rootv.shape
+    dev = res.rootv.device
+    yy = torch.arange(H, dtype=torch.int32,
+                      device=dev).repeat_interleave(W)[None]
+    xx = torch.arange(W, dtype=torch.int32, device=dev).repeat(H)[None]
+    anchor = comp.anchor.to(torch.float32)
+    tables = torch.zeros((3, P, M, H, W), dtype=torch.int32, device=dev)
+    for p in range(1, P):
+        for m in range(M):
+            x, y, mc = walk_children(
+                res.scores[p][None], res.tmp[p][None], comp.defw[p],
+                anchor[p], comp.bias[p], torch.full_like(yy, m), yy, xx,
+                compose)
+            for t, v in enumerate((x, y, mc)):
+                tables[t, p, m] = v.reshape(H, W)
+    return tables[0], tables[1], tables[2]

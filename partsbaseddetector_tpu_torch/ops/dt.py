@@ -55,6 +55,66 @@ def dt_max_y(src: torch.Tensor, w2, w3, ay) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------
+# the DT with argmax tables (partsbaseddetector_tpu/ops/dt.py:46-54,
+# :117-161): the plain reference for the DP's argmaxes, held against the
+# JAX package's tables; no hot path calls them (the walk recomputes
+# argmaxes at its K points, ops/dp.walk_children)
+# ---------------------------------------------------------------------
+
+def dt_max_1d_last(src: torch.Tensor, w0, w1, offset) -> torch.Tensor:
+    """Max-only 1-D DT pass along the last axis:
+    dst[.., q] = max_x src[.., x] - w0 d^2 - w1 d, d = q + offset - x.
+    w0, w1, offset: scalars."""
+    return _shiftdt_pass(src, w0, w1, offset, src.shape[-1], 1)[0]
+
+
+def distance_transform_raw(score: torch.Tensor, w, anchor):
+    """2-D generalized distance transform, raw pass tables.
+
+    score: (M, N); w: (4,); anchor: (2,) (ax, ay).
+    Returns (out, ix_row, iy_col), each (M, N):
+      out[py, px]    - the max-transformed score
+      ix_row[cy, px] - x-pass argmax (rows indexed by CHILD y)
+      iy_col[py, px] - y-pass argmax
+    Argmaxes are int32 and resolve ties to the smallest index."""
+    w = torch.as_tensor(w, dtype=score.dtype, device=score.device)
+    anchor = torch.as_tensor(anchor, device=score.device)
+    M, N = score.shape
+    tmp, ix_row = _shiftdt_pass(score, w[0], w[1], anchor[0], N, 1)
+    out_t, iy_col_t = _shiftdt_pass(tmp.T, w[2], w[3], anchor[1], M, 1)
+    return out_t.T, ix_row, iy_col_t.T
+
+
+def distance_transform(score: torch.Tensor, w, anchor,
+                       compose: str = "reference"):
+    """Full DT with composed argmax tables (the reference's
+    include/DistanceTransform.hpp:233-244): compose="reference" keeps
+    the row-pass table indexed by child-y rows and gathers Iy through
+    it; "correct" is the textbook composition.
+
+    Returns (out, Ix, Iy) each (M, N) indexed [parent_y, parent_x]."""
+    out, ix_row, iy_col = distance_transform_raw(score, w, anchor)
+    if compose == "reference":
+        ix = ix_row
+        iy = torch.gather(iy_col, 1, ix_row.long())
+    elif compose == "correct":
+        iy = iy_col
+        ix = torch.gather(ix_row, 0, iy_col.long())
+    else:
+        raise ValueError(compose)
+    return out, ix, iy
+
+
+def dt_mixtures_raw(scores: torch.Tensor, defw, anchors):
+    """distance_transform_raw over the mixture axis: scores
+    (M_mix, H, W), defw (M_mix, 4), anchors (M_mix, 2).  Returns the
+    three tables stacked, each (M_mix, H, W)."""
+    outs = [distance_transform_raw(s, w, a)
+            for s, w, a in zip(scores, defw, anchors)]
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+# ---------------------------------------------------------------------
 # shifted / strided DT: the multi-resolution message op
 # (partsbaseddetector_tpu/ops/dt.py:168-267; the Matlab detector's
 # matlab/oct/shiftdt.cc)

@@ -4,7 +4,7 @@ partsbaseddetector_tpu/tools/demo.py:
 
     python -m partsbaseddetector_tpu_torch.tools.demo MODEL IMAGE [DEPTH]
         [--out overlay.png] [--nms OVERLAP] [--max-candidates N]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--mesh DATA,FILTER | --scale-mesh SCALE,FILTER]
 
 Loads a model by extension (.xml/.yml/.mat/.npz — reference:
 src/demo.cpp:63-77), runs detection on the device (CUDA unless
@@ -57,17 +57,16 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) | cpu")
     ap.add_argument("--mesh", default=None, metavar="DATA,FILTER",
-                    help="not ported yet (ROADMAP.md queue 1 item 19)")
+                    help="serve on a (data, filter) mesh of the job's "
+                         "ranks via BatchDetector (the frame replicated "
+                         "over the data axis)")
     ap.add_argument("--scale-mesh", default=None, metavar="SCALE,FILTER",
-                    help="not ported yet (ROADMAP.md queue 1 item 19)")
+                    help="shard pyramid levels over a (scale, filter) "
+                         "mesh of the job's ranks (ScaleShardedDetector)")
     ap.add_argument("--walk-impl", default="auto",
                     choices=("auto", "cuda", "torch"))
     ap.add_argument("--dp-split", type=int, default=None)
     args = ap.parse_args(argv)
-    if args.mesh is not None or args.scale_mesh is not None:
-        raise NotImplementedError(
-            "--mesh / --scale-mesh: the parallel paths are not ported "
-            "yet (ROADMAP.md queue 1 item 19)")
 
     from partsbaseddetector_tpu_torch.infer.detector import Detector
     from partsbaseddetector_tpu_torch.models import load_any
@@ -79,7 +78,34 @@ def main(argv=None) -> int:
     im = load_image(args.image)
     depth = load_depth(args.depth) if args.depth else None
 
-    if model.max_scale() > 0:
+    def _axes(text):
+        return tuple(int(x) for x in text.split(","))
+
+    detect_one = None
+
+    if args.scale_mesh is not None:
+        from partsbaseddetector_tpu_torch.parallel.scale_sharded import (
+            ScaleShardedDetector, make_scale_mesh)
+        det = ScaleShardedDetector(
+            model, make_scale_mesh(_axes(args.scale_mesh), args.device),
+            k_per_level=args.k_per_level, conv_engine=args.conv_engine,
+            walk_impl=args.walk_impl)
+        print(f"levels sharded over mesh {args.scale_mesh}")
+    elif args.mesh is not None:
+        from partsbaseddetector_tpu_torch.parallel import (BatchDetector,
+                                                           make_mesh)
+        det = BatchDetector(
+            model, make_mesh(_axes(args.mesh), device=args.device),
+            k_per_level=args.k_per_level, conv_engine=args.conv_engine,
+            walk_impl=args.walk_impl, dp_split=args.dp_split)
+        ndata = det.mesh.shape["data"]
+        print(f"serving on mesh {args.mesh} "
+              f"({'multires program' if det.multires else 'sharded'})")
+
+        def detect_one(image):
+            b = np.repeat(image[None], ndata, 0)
+            return det.detect_batch(b).map(lambda x: x[0])
+    elif model.max_scale() > 0:
         from partsbaseddetector_tpu_torch.infer.multires import \
             MultiResDetector
         det = MultiResDetector(model, k_per_level=args.k_per_level,
@@ -92,7 +118,7 @@ def main(argv=None) -> int:
                        walk_impl=args.walk_impl, dp_split=args.dp_split,
                        device=args.device)
     t0 = time.time()
-    cands = det.detect_raw(im)
+    cands = (detect_one or det.detect_raw)(im)
     if args.nms is not None:
         from partsbaseddetector_tpu_torch.ops.nms import paint_nms
         cands = paint_nms(cands, im.shape[:2], args.nms)

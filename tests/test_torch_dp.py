@@ -172,3 +172,74 @@ def test_dp_min_levels_part_masks(maker, hw):
             np.testing.assert_allclose(getattr(got, f).numpy(),
                                        np.asarray(getattr(ref, f)),
                                        err_msg=f, **TOL)
+
+
+# ---------------------------------------------------------------------
+# the DT/DP argmax tables (ops/dt.distance_transform*, ops/dp.
+# composed_tables): integer tables exact, maxima to the module's TOL,
+# on the shapes and anchors of tests/test_ops_vs_oracle.py:139-157
+
+
+@pytest.mark.parametrize("shape,anchor,compose", [
+    ((13, 13), (0, 0), "reference"), ((9, 14), (2, -3), "reference"),
+    ((20, 7), (-5, 4), "reference"), ((12, 12), (1, 1), "correct"),
+    ((9, 14), (2, -3), "correct"),
+])
+def test_distance_transform_tables(shape, anchor, compose):
+    rng = np.random.default_rng(shape[0] * 31 + shape[1])
+    score = rng.standard_normal(shape).astype(np.float32) * 3
+    w = np.array([0.1, -0.02, 0.07, 0.01], np.float32)
+    args_j = (jnp.asarray(score), jnp.asarray(w),
+              jnp.asarray(anchor, jnp.int32))
+    args_t = (torch.from_numpy(score), torch.from_numpy(w),
+              torch.tensor(anchor, dtype=torch.int32))
+    for name, ref, got in (
+            ("composed", dt_jax.distance_transform(*args_j, compose),
+             dt_t.distance_transform(*args_t, compose)),
+            ("raw", dt_jax.distance_transform_raw(*args_j),
+             dt_t.distance_transform_raw(*args_t))):
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]),
+                                   err_msg=name, **TOL)
+        for a, b in zip(got[1:], ref[1:]):
+            assert a.dtype == torch.int32
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                          err_msg=name)
+    np.testing.assert_allclose(
+        dt_t.dt_max_1d_last(args_t[0], 0.1, -0.02, anchor[0]).numpy(),
+        np.asarray(dt_jax.dt_max_1d_last(args_j[0], 0.1, -0.02,
+                                         anchor[0])), **TOL)
+
+
+def test_dt_mixtures_raw():
+    rng = np.random.default_rng(8)
+    scores = rng.standard_normal((3, 9, 11)).astype(np.float32)
+    w, anc = _weights(rng, 3)
+    ref = dt_jax.dt_mixtures_raw(jnp.asarray(scores), jnp.asarray(w),
+                                 jnp.asarray(anc))
+    got = dt_t.dt_mixtures_raw(torch.from_numpy(scores), torch.from_numpy(w),
+                               torch.from_numpy(anc))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), **TOL)
+    for a, b in zip(got[1:], ref[1:]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("compose", ["reference", "correct"])
+@pytest.mark.parametrize("maker,hw", [("tiny", (14, 17)),
+                                      ("person_like", (8, 11))])
+def test_composed_tables(maker, hw, compose):
+    """The full Ix/Iy/Ik tables, built on each package's walk from the
+    same DP inputs, equal."""
+    jp = tree_jax.pack_model(getattr(syn_jax, maker)(seed=5))
+    pt = port_packed(jp)
+    rng = np.random.default_rng(5)
+    pdfs = rng.standard_normal(hw + (jp.bank.shape[3],)).astype(np.float32)
+    ref = dp_jax.composed_tables(
+        dp_jax.dp_min(jnp.asarray(pdfs), jp.components[0], compose),
+        jp.components[0], compose)
+    got = dp_t.composed_tables(
+        dp_t.dp_min(torch.from_numpy(pdfs), pt.components[0], compose),
+        pt.components[0], compose)
+    for name, a, b in zip(("Ix", "Iy", "Ik"), got, ref):
+        assert a.dtype == torch.int32 and a.shape == b.shape, name
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      err_msg=name)

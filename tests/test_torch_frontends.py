@@ -290,7 +290,7 @@ def test_ork_config_parse_and_instantiate(model_file):
 @pytest.mark.parametrize("frontend", ["ros", "ecto"])
 @pytest.mark.parametrize("key,value,exc,match", [
     ("aot_dir", "/tmp/aot", ValueError, "not carried by the port"),
-    ("mesh", [4, 2], NotImplementedError, "item 19"),
+    ("mesh", [4, 2], ValueError, "world size is 1"),
     ("walk_imp", "cuda", ValueError, "unknown parameter"),
 ])
 def test_frontends_refuse(model_file, frontend, key, value, exc, match):
@@ -346,5 +346,5 @@ def test_demo_prints_the_jax_detections(model_file, tmp_path, capsys):
     got = lines()
     assert len(ref) > 3 and got == ref
     assert demo.load_image(out).shape == (64, 64, 3)
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(ValueError, match="world size is 1"):
         demo.main(common + ["--device", "cpu", "--mesh", "4,2"])

@@ -45,7 +45,10 @@ def test_port_has_the_slice_modules():
                  "train.features", "train.trainer", "tools.datasets",
                  "tools.train", "tools.evaluate", "tools.model_transfer",
                  "tools.annotate", "utils.eval",
-                 "models.transfer_formats"):
+                 "models.transfer_formats", "config", "utils.profiling",
+                 "parallel", "parallel.mesh", "parallel.distributed",
+                 "parallel.sharded", "parallel.scale_sharded",
+                 "parallel.pipeline"):
         assert f"partsbaseddetector_tpu_torch.{name}" in mods, name
     assert (REPO / "partsbaseddetector_tpu_torch/csrc/walk.cu").is_file()
 
@@ -76,8 +79,32 @@ def test_importing_the_port_loads_no_jax():
         "m.startswith('partsbaseddetector_tpu.')]\n"
         "print(json.dumps({'n': len(mods), 'bad': bad}))\n")
     res = _run(code)
-    assert res["n"] >= 54
+    assert res["n"] >= 62
     assert res["bad"] == []
+
+
+def test_parallel_imports_without_a_process_group():
+    """parallel/ imports, and builds its world-size-1 meshes and
+    detectors, in a process where no torch.distributed process group
+    (and no backend) was ever initialised; importing it initialises
+    none."""
+    code = (
+        "import json\n"
+        "import torch.distributed as dist\n"
+        "from partsbaseddetector_tpu_torch import parallel\n"
+        "from partsbaseddetector_tpu_torch.parallel import (distributed,\n"
+        "    mesh, pipeline, scale_sharded, sharded)\n"
+        "from partsbaseddetector_tpu_torch.models import synthetic\n"
+        "before = dist.is_initialized()\n"
+        "m = parallel.make_mesh(device='cpu')\n"
+        "s = scale_sharded.make_scale_mesh(device='cpu')\n"
+        "b = parallel.BatchDetector(synthetic.tiny(), m)\n"
+        "print(json.dumps({'before': before,\n"
+        "                  'after': dist.is_initialized(),\n"
+        "                  'shapes': [m.shape, s.shape]}))\n")
+    assert _run(code) == {"before": False, "after": False,
+                          "shapes": [{"data": 1, "filter": 1},
+                                     {"scale": 1, "filter": 1}]}
 
 
 def test_the_port_imports_without_pil_and_yaml():

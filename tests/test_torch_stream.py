@@ -25,6 +25,7 @@ from partsbaseddetector_tpu_torch.infer.detector import DepthPrune, Detector
 from partsbaseddetector_tpu_torch.infer.multires import MultiResDetector
 from partsbaseddetector_tpu_torch.infer.stream import StreamingDetector
 from partsbaseddetector_tpu_torch.models import synthetic as syn_t
+from partsbaseddetector_tpu_torch.parallel import BatchDetector, make_mesh
 from partsbaseddetector_tpu_torch.post.depth import CameraModel
 
 torch.set_num_threads(1)
@@ -242,8 +243,14 @@ def test_knobs_and_refusals(model_t):
     assert (d.conv_engine, d.walk_impl, d.dp_split, d.compose,
             d.k_per_level, d.device.type) == \
         ("fft", "torch", 2, "correct", 8, "cpu")
-    with pytest.raises(NotImplementedError, match="item 19"):
+    # a mesh is a parallel.mesh.Mesh over the job's ranks
+    with pytest.raises(TypeError, match="Mesh"):
         StreamingDetector(model_t, mesh=(4, 2), device="cpu")
+    with pytest.raises(ValueError, match="world size is 1"):
+        make_mesh((4, 2), device="cpu")
+    sd = StreamingDetector(model_t, mesh=make_mesh(device="cpu"),
+                           k_per_level=8)
+    assert isinstance(sd.detector, BatchDetector)
     with pytest.raises(TypeError):
         StreamingDetector(model_t, aot_dir="/nonexistent", device="cpu")
     with pytest.raises(ValueError, match="unknown sink"):
