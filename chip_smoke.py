@@ -94,7 +94,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      (1, 1) mesh (B=8), ScaleShardedDetector on a (1, 1) scale mesh (one
      frame) and PipelinedDetector with front = back = cuda:0 (a stream
      of 2 frames), each equal to Detector on all Candidates fields, with
-     its walk launches counted and its ms/frame;
+     its walk launches counted and its ms/frame; ScaleShardedDetector on
+     a (1, 1) scale mesh with the multires person (thresh -1e9, one
+     frame, its slots split over scale) equal to MultiResDetector on all
+     fields with no walk launch, and the ms/frame and peak memory of
+     both, in turns;
  12. StreamingDetector(mesh=make_mesh()) at world size 1: process_batch
      and stream (B=8) and process give the detections of the
      StreamingDetector without a mesh;
@@ -1930,9 +1934,9 @@ def phase_parallel(model, frames, cands) -> dict:
     640x480: BatchDetector on a (1, 1) mesh at B=8 == the main path's
     Candidates; ScaleShardedDetector on a (1, 1) mesh on frame 0 ==
     Detector(dp_split=1); PipelinedDetector with front = back = cuda:0
-    streaming frames 0-1 == Detector.detect_raw of each.  Each with the
-    walk's launch count set to 0 just before and read just after.
-    Returns the launches of each."""
+    streaming frames 0-1 == Detector.detect_raw of each; then
+    phase_scale_multires.  Each with the walk's launch count set to 0
+    just before and read just after.  Returns the launches of each."""
     from partsbaseddetector_tpu_torch.infer.detector import Detector
     from partsbaseddetector_tpu_torch.parallel import (BatchDetector,
                                                        make_mesh)
@@ -1978,7 +1982,39 @@ def phase_parallel(model, frames, cands) -> dict:
            lambda: list(pdet.stream(two)), 2)
     report("Detector.detect_raw, 2 frames (the pipeline's baseline)",
            lambda: [single.detect_raw(f) for f in two], 2)
+    out["scale_sharded_multires"] = phase_scale_multires(frames)
     return out
+
+
+def phase_scale_multires(frames) -> int:
+    """11, multi-resolution: ScaleShardedDetector on a (1, 1) scale mesh
+    with multires_person() (thresh -1e9, K = 64) on frame 0 == the
+    card's MultiResDetector.detect_raw on all fields, with the walk's
+    launch count (0: the multires walk is plain torch) read around it;
+    then the ms/frame and peak memory of both, in turns.  Returns the
+    launches."""
+    from partsbaseddetector_tpu_torch.infer.multires import MultiResDetector
+    from partsbaseddetector_tpu_torch.parallel.scale_sharded import (
+        ScaleShardedDetector, make_scale_mesh)
+    m = multires_person()
+    m.thresh = -1e9
+    sdet = ScaleShardedDetector(m, make_scale_mesh(), k_per_level=K)
+    mdet = MultiResDetector(m, k_per_level=K, device="cuda")
+    one = frames[0]
+    what = "ScaleShardedDetector (1, 1), multires person, one frame"
+    got, n = counted(lambda: sdet.detect_raw(one))
+    expect_launches(what, n, 0)
+    equal_candidates(got, mdet.detect_raw(one),
+                     f"{what} vs MultiResDetector")
+    log(f"{what}: slots {sdet.local_slot_range(IMG)} of buckets "
+        f"{[len(b.levels) for b in sdet.plan_for(IMG).buckets]}, "
+        f"capacity {got.capacity}")
+    for name, fn in ((what, sdet.detect_raw),
+                     ("MultiResDetector, one frame", mdet.detect_raw),
+                     ("MultiResDetector, one frame", mdet.detect_raw),
+                     (what, sdet.detect_raw)):
+        report(name, lambda: fn(one), 1)
+    return n
 
 
 # ---------------------------------------------------------------- phase 12

@@ -161,19 +161,30 @@ def _multires_stage12(image: torch.Tensor, packed: PackedModel,
     return per_bucket
 
 
-def _multires_stage34(per_bucket, packed: PackedModel, k_per_level: int,
-                      part_masks=None) -> argmax_ops.Candidates:
-    """Stages 3-4 for one frame on _multires_stage12's output: per root
-    bucket and component the cross-octave DP and walk, then one stable
-    sort."""
+def _multires_walks(per_bucket, packed: PackedModel, k_per_level: int,
+                    part_masks=None, slot0: int = 0
+                    ) -> List[Tuple[int, Optional[argmax_ops.Candidates]]]:
+    """The cross-octave DP and walk of every root bucket o >= smax and
+    component c, in (o, c) order: [(c, Candidates of capacity L_o * k)].
+
+    per_bucket entries may hold a slot range of their bucket: every
+    entry's slots start at slot ``slot0`` of its bucket, and entry b
+    holds L_b of them (tsizes' length; parallel/scale_sharded splits
+    the slots so).  A root bucket with L_o = 0 gives None in place of
+    Candidates, and its responses (None there) are never read: bucket
+    lengths never grow with the octave, so a root's finer buckets hold
+    at least its slots."""
     smax = max((max(sc) for sc in packed.scale_static), default=0)
-    all_cands: List[argmax_ops.Candidates] = []
+    out = []
     for o in range(smax, len(per_bucket)):
-        bkt, pdfs_o, tsizes_o, _ = per_bucket[o]
-        L = len(bkt.levels)
-        levels = (torch.arange(L, dtype=torch.int32, device=pdfs_o.device)
-                  + bkt.levels[0].index)
+        bkt, _, tsizes_o, _ = per_bucket[o]
+        L = tsizes_o.shape[0]
+        levels = (torch.arange(L, dtype=torch.int32, device=tsizes_o.device)
+                  + bkt.levels[0].index + slot0)
         for c, comp in enumerate(packed.components):
+            if L == 0:
+                out.append((c, None))
+                continue
             pscales = packed.scale_static[c]
             parents = packed.parent_static[c]
             rootv, rooti, scores, tmps = _dp_multires(
@@ -182,11 +193,20 @@ def _multires_stage34(per_bucket, packed: PackedModel, k_per_level: int,
             # part's own bucket, sliced to this bucket's levels
             pscl = torch.stack([per_bucket[o - pscales[p]][3][:L]
                                 for p in range(comp.nparts)], dim=1)
-            all_cands.append(_walk_levels(
+            out.append((c, _walk_levels(
                 rootv, rooti, scores, tmps, comp, pscales, parents,
-                packed.thresh, tsizes_o, pscl, k_per_level, c, levels))
-    return argmax_ops.sort_candidates(
-        argmax_ops.concat_candidates(all_cands))
+                packed.thresh, tsizes_o, pscl, k_per_level, c, levels)))
+    return out
+
+
+def _multires_stage34(per_bucket, packed: PackedModel, k_per_level: int,
+                      part_masks=None) -> argmax_ops.Candidates:
+    """Stages 3-4 for one frame on _multires_stage12's output: per root
+    bucket and component the cross-octave DP and walk, then one stable
+    sort."""
+    return argmax_ops.sort_candidates(argmax_ops.concat_candidates(
+        [c for _, c in _multires_walks(per_bucket, packed, k_per_level,
+                                       part_masks)]))
 
 
 def _multires_program(image: torch.Tensor, packed: PackedModel,

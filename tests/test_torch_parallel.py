@@ -10,10 +10,12 @@ Integer fields (``valid``, ``loc``, ``level``, ``component``) and
 and resampling sums in another order, as tests/test_torch_detector.py;
 the atol covers scores near zero, whose f32 rounding is about 1e-7
 absolute); all fields
-exact against the port's Detector.  Across ranks: two gloo processes
+exact against the port's Detector (MultiResDetector for a
+multi-resolution model).  Across ranks: two gloo processes
 (tests/torch_parallel_worker.py) per case, each rank's result equal to
-Detector's on all fields."""
+Detector's (MultiResDetector's) on all fields."""
 
+import dataclasses
 import json
 import os
 import socket
@@ -243,6 +245,87 @@ def test_scale_sharded_depth_masks_multires(models):
                                   device="cpu").detect_raw(im))
 
 
+MR_DEPTH = DepthPrune(part_width_m=0.2, fx=400.0, tol=0.3)
+
+
+@pytest.fixture(scope="module")
+def mr_models():
+    mj, mt = syn_jax.tiny_multires(seed=5), syn_t.tiny_multires(seed=5)
+    mj.thresh = mt.thresh = -1e9
+    return mj, mt
+
+
+def _multires_inputs(mt, shape, seed):
+    """A seeded frame, a depth map (a plausible depth for the middle
+    level, its top quarter 0) and seeded part masks at each plan
+    bucket's feature size, for tiny_multires on an (H, W) frame."""
+    rng = np.random.default_rng(seed)
+    im = (rng.random(shape + (3,)) * 255).astype(np.float32)
+    plan = MultiResDetector(mt, device="cpu").plan_for(shape)
+    scales = [lv.scale for lv in plan.levels]
+    depth = np.full(shape, MR_DEPTH.fx * MR_DEPTH.part_width_m
+                    / scales[len(scales) // 2], np.float32)
+    depth[:shape[0] // 4] = 0.0
+    P = mt.components[0].nparts
+    masks = [rng.random((len(b.levels), P) + b.feat_pad) < 0.6
+             for b in plan.buckets]
+    return im, depth, masks
+
+
+def _multires_case(det, case, im, depth, masks):
+    if case == "depth":
+        return det.detect_raw(im, depth=depth)
+    if case == "masked":
+        return det.detect_masked_raw(im, masks)
+    return det.detect_raw(im)
+
+
+# every (mesh, frame, case) but fft on (4, 2) at 96x96, where the JAX
+# package's program fails on the CPU inside XLA's FFT thunk (a RET_CHECK
+# on the input layout, fft_thunk.cc:167) and gives no reference
+MULTIRES_CASES = [
+    (mesh, shape, case) for mesh in [(8, 1), (4, 2)]
+    for shape in [(64, 64), (96, 96)]
+    for case in ["plain", "depth", "masked", "fft"]
+    if (mesh, shape, case) != ((4, 2), (96, 96), "fft")]
+
+
+@pytest.mark.parametrize("jax_mesh,shape,case", MULTIRES_CASES)
+def test_scale_sharded_multires_matches_jax(mr_models, jax_mesh, shape,
+                                            case):
+    """A multi-resolution model's slots split over ``scale`` (one rank
+    here) against the JAX package's level-sharded multires program on
+    its virtual mesh, and bit for bit against MultiResDetector.  fft:
+    ``valid`` exact and ``score`` within 2e-3 against JAX, the bound of
+    tests/test_parallel.py::test_multires_fft_scale_sharded."""
+    mj, mt = mr_models
+    im, depth, masks = _multires_inputs(mt, shape, seed=sum(shape))
+    engine = "fft" if case == "fft" else "spatial"
+    cfg = MR_DEPTH if case == "depth" else None
+    jcfg = DepthPruneJax(**dataclasses.asdict(cfg)) if cfg else None
+    ref = _multires_case(scale_jax.ScaleShardedDetector(
+        mj, scale_jax.make_scale_mesh(jax_mesh), k_per_level=8,
+        conv_engine=engine, depth_prune=jcfg), case, im, depth, masks)
+    sdet = ScaleShardedDetector(mt, make_scale_mesh(device="cpu"),
+                                k_per_level=8, conv_engine=engine,
+                                depth_prune=cfg)
+    assert sdet.local_slot_range(shape) == (0, 3)
+    got = _multires_case(sdet, case, im, depth, masks)
+    if case == "fft":
+        np.testing.assert_array_equal(_np(got.valid), _np(ref.valid))
+        np.testing.assert_allclose(_np(got.score), _np(ref.score),
+                                   atol=2e-3)
+    else:
+        assert_like_jax(got, ref)
+    single = MultiResDetector(mt, k_per_level=8, conv_engine=engine,
+                              depth_prune=cfg, device="cpu")
+    want = _multires_case(single, case, im, depth, masks)
+    assert_equal(got, want)
+    assert got.valid.any()
+    if case in ("depth", "masked"):     # the pruning and masks bite
+        assert not torch.equal(want.score, single.detect_raw(im).score)
+
+
 def test_pipelined_matches_jax(models):
     mj, mt = models
     frames = list(_frames(6, 3))
@@ -367,3 +450,28 @@ def test_scale_sharded_two_ranks():
     for out in _two_ranks("scale", (2, 1)):
         assert out["equal"] == list(FIELDS), out
         assert out["nvalid"] > 0
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
+def test_scale_sharded_multires_two_ranks(shape):
+    """tiny_multires at 96x96 has buckets of (3, 3, 1) slots.  On
+    (scale, filter) = (2, 1) each bucket's slots split at C = 2: rank 0
+    convolves slots 0-1 of buckets 0-1 and slot 0 of bucket 2, and walks
+    root levels 3, 4 (bucket 1) and 6 (bucket 2); rank 1 slot 2 of
+    buckets 0-1 and nothing of bucket 2, and walks level 5.  On (1, 2)
+    both ranks run every slot with half the bank.  Every rank's result
+    equals MultiResDetector's on all fields, capacity included."""
+    outs = _two_ranks("scale_multires", shape)
+    ran = ([{"slots": [0, 2], "conv": [2, 2, 1], "dp": [[1, 2], [2, 1]],
+             "walk": [[3, 4], [6]]},
+            {"slots": [2, 3], "conv": [1, 1], "dp": [[1, 1]],
+             "walk": [[5]]}] if shape == (2, 1) else
+           [{"slots": [0, 3], "conv": [3, 3, 1], "dp": [[1, 3], [2, 1]],
+             "walk": [[3, 4, 5], [6]]}] * 2)
+    for out, want in zip(outs, ran):
+        for what in ("equal", "depth_equal", "masked_equal"):
+            assert out[what] == list(FIELDS), (what, out)
+        assert out["bite"] == [True, True], out
+        assert out["nvalid"] > 0 and out["capacity"] == 4 * 8
+        assert out["slots"] == want["slots"]
+        assert out["ran"] == {k: want[k] for k in ("conv", "dp", "walk")}
