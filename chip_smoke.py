@@ -35,10 +35,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      device ms (the package's utils/profiling.CudaStageTimer: CUDA
      events at the detector's stage hook), peak device memory, and one
      batch under torch.profiler (utils/profiling.device_trace and
-     device_busy): the device's busy and idle share and the kernels
-     that take the most device time;
+     device_busy): the device's busy and idle share of the traced
+     window and the kernels that take the most device time;
   7. the slice-3 paths, each path that ends in the walk kernel with the
-     kernel's launch count set to 0 just before it and read just after
+     kernel's launches counted by the port's tracer around it
      (expected: one launch per dp group and component), ms/frame and
      peak device memory for each:
      (a) person-26 with shared filter ids (aliased_person), B=8: valid
@@ -69,7 +69,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      card vs CPU at 120x160 through StreamingDetector; the cleaned_cloud
      topic with planes removed on 2 frames; frames/s of process,
      process_batch and stream, the post stage's host ms per frame by
-     stage, peak device memory and the messages published per topic;
+     step (the tracer's post.* and fetch spans around process_batch),
+     peak device memory and the messages published per topic;
   9. training on the card (the port's train_parts_model,
      device="cuda"): (1) the config of tests/test_train.py:202-227
      trained on the card and on the CPU: equal decisions (latent
@@ -553,13 +554,9 @@ def check_candidates(c, nlevels: int, P: int, batch=None) -> None:
 def phase_main_path(det, frames, ngroups: int):
     from partsbaseddetector_tpu_torch.models import synthetic
     from partsbaseddetector_tpu_torch.infer.detector import Detector
-    from partsbaseddetector_tpu_torch.ops import walk
     nlevels = len(det.plan_for(IMG).levels)
     P = det.packed.components[0].filterid.shape[0]
-    walk.LAUNCHES = 0
-    cands = det.detect_batch_raw(frames)
-    torch.cuda.synchronize()
-    launches = walk.LAUNCHES
+    cands, launches = counted(lambda: det.detect_batch_raw(frames))
     expected = ngroups * len(det.packed.components)
     log(f"main path: {nlevels} levels, {ngroups} dp groups; walk kernel "
         f"launches {launches} (expected {expected})")
@@ -731,7 +728,7 @@ def phase_device_trace(det, frames, what: str = ""):
         return None
     log(f"{what}device trace (torch.profiler, one B={BATCH} batch): "
         f"{got['kernels']} device kernels, busy {got['busy_ms']:.3f} ms of "
-        f"a {got['span_ms']:.3f} ms span, idle share "
+        f"a {got['window_ms']:.3f} ms traced window, idle share "
         f"{got['idle_share']:.3f}")
     for name, ms, n in got["top"]:
         log(f"  {ms:9.3f} ms  {n:6d}x  {name[:90]}")
@@ -740,8 +737,8 @@ def phase_device_trace(det, frames, what: str = ""):
 
 # ---------------------------------------------------------------- phase 7
 # The slice-3 paths.  Each one that ends in the walk kernel is driven
-# with the kernel's launch count set to 0 just before and read just
-# after; comparison runs (plain walk, CPU) are outside those windows.
+# with the kernel's launches counted around it; comparison runs (plain
+# walk, CPU) are outside those windows.
 
 #: the small frame of the card-vs-CPU checks
 SMALL = (120, 160)
@@ -754,15 +751,23 @@ def small_frame() -> torch.Tensor:
                          dtype=torch.uint8)
 
 
+def walk_launches() -> int:
+    """The walk kernel's launches the port's tracer has counted (it
+    counts inside profiling.tracing())."""
+    from partsbaseddetector_tpu_torch.utils import profiling
+    return profiling.TRACER.counters.get("walk.launches", 0)
+
+
 def counted(fn):
-    """fn() with the walk kernel's launch count set to 0 just before and
-    read just after; returns (result, launches)."""
-    from partsbaseddetector_tpu_torch.ops import walk
+    """fn() under the port's tracer; returns (result, the walk kernel's
+    launches in it)."""
+    from partsbaseddetector_tpu_torch.utils import profiling
     torch.cuda.synchronize()
-    walk.LAUNCHES = 0
-    out = fn()
-    torch.cuda.synchronize()
-    return out, walk.LAUNCHES
+    with profiling.tracing():
+        n0 = walk_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, walk_launches() - n0
 
 
 def expect_launches(what: str, got: int, expected: int) -> None:
@@ -1233,50 +1238,6 @@ def same_results(a, b, what: str) -> None:
         same_3d(x, y, len(x.detections), f"{what}, frame {j}", 0.0)
 
 
-def post_split(cands_b, rgbs, depths_m, clouds, cam, n_clusters: int):
-    """Host ms per frame of each post stage, run by hand on one batch's
-    Candidates as StreamingDetector._postprocess runs them: the paint
-    NMS on the card (to a synchronize), the fetch of the detections,
-    compute_bounding_boxes, poses, the mask and the four messages, and
-    (on the first n_clusters frames) plane removal + clustering."""
-    from partsbaseddetector_tpu_torch.frontends import messages as msgs
-    from partsbaseddetector_tpu_torch.infer.detector import Detector
-    from partsbaseddetector_tpu_torch.infer.stream import detections_mask
-    from partsbaseddetector_tpu_torch.ops.nms import paint_nms
-    from partsbaseddetector_tpu_torch.post.cloud import (
-        cluster_objects, compute_bounding_boxes,
-        organized_multiplane_segmentation)
-    from partsbaseddetector_tpu_torch.post.poses import \
-        poses_from_part_centers
-    acc: dict = {}
-
-    def timed(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        acc.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    header = msgs.Header()
-    for i in range(len(rgbs)):
-        c = cands_b.map(lambda x: x[i])
-        kept = timed("nms", lambda: (paint_nms(c, IMG, 0.1),
-                                     torch.cuda.synchronize())[0])
-        dets = timed("fetch", lambda: Detector.candidates_to_detections(
-            kept, 32))
-        boxes, centers = timed("boxes3d", lambda: compute_bounding_boxes(
-            dets, IMG, depths_m[i], cam))
-        timed("poses", lambda: poses_from_part_centers(centers))
-        timed("messages", lambda: (
-            msgs.message_mask(detections_mask(IMG, dets), rgbs[i], header),
-            msgs.message_bounding_box(boxes, header, "person"),
-            msgs.message_part_centers(centers, header, "person"),
-            msgs.message_poses(header, centers)))
-        if i < n_clusters:
-            timed("clusters", lambda: cluster_objects(
-                organized_multiplane_segmentation(clouds[i]), boxes))
-    return {k: statistics.mean(v) for k, v in acc.items()}
-
-
 def phase_serving(smi: str) -> dict:
     """8. The serving path on the card; returns the walk launches per
     dispatch of the ROS callback (B=1) and of stream (B=8)."""
@@ -1412,14 +1373,21 @@ def phase_serving(smi: str) -> dict:
     if nclouds != 2:
         raise RuntimeError("serve: cleaned_cloud not published per frame")
 
-    # the post stage, split by hand on the first batch
-    split = post_split(raw[0], rgbs[:SERVE_BATCH], depths, clouds, cam, 2)
-    log("serve: post stage, host ms per frame: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in split.items()) + " (clusters: 2 frames)")
+    # the post stage by step: the tracer's spans of the first batch
+    from partsbaseddetector_tpu_torch.utils import profiling
+    first = slice(0, SERVE_BATCH)
+    with profiling.tracing() as tracer:
+        sd.process_batch(np.stack(rgbs[first]), np.stack(depths[first]),
+                         np.stack(clouds[first]))
+    split = {k: v / SERVE_BATCH for k, v in tracer.self_ms().items()
+             if k.startswith(("post.", "fetch", "serve."))}
+    log("serve: post stage, host ms per frame (the tracer's spans around "
+        "process_batch): " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in sorted(split.items()))
+        + f"; readbacks {tracer.counters.get('readbacks', 0)} a batch")
 
     # times: median of 3 after a warm call, host clock to a synchronize,
     # and the peak device memory of those calls
-    first = slice(0, SERVE_BATCH)
     runs = (
         ("process (B=1)", 1,
          lambda: sd.process(rgbs[0], depths[0], clouds[0])),
@@ -1525,17 +1493,16 @@ class TrainClock:
             torch.cuda.synchronize()
 
     def _wrap(self, owner, name: str, kind: str) -> None:
-        from partsbaseddetector_tpu_torch.ops import walk
         orig = getattr(owner, name)
         clock = self
 
         def timed(*a, **kw):
-            n0 = walk.LAUNCHES
+            n0 = walk_launches()
             t = time.perf_counter()
             out = orig(*a, **kw)
             clock._sync()
             dt = time.perf_counter() - t
-            n = walk.LAUNCHES - n0
+            n = walk_launches() - n0
             if kind == "detect" and a[0].walk_impl == "cuda":
                 want = expected_launches(a[0], tuple(a[1].shape[:2]))
                 if n != want:
@@ -1552,6 +1519,9 @@ class TrainClock:
         from partsbaseddetector_tpu_torch.infer.detector import Detector
         from partsbaseddetector_tpu_torch.train import trainer
         from partsbaseddetector_tpu_torch.train.qp import QPCache
+        from partsbaseddetector_tpu_torch.utils import profiling
+        self._tracing = profiling.tracing()     # counts the walk launches
+        self._tracing.__enter__()
         for owner, name, kind in (
                 (Detector, "detect_raw", "detect"),
                 (Detector, "detect_masked_raw", "detect"),
@@ -1568,6 +1538,7 @@ class TrainClock:
         sys.stdout = self._stdout
         for owner, name, orig in reversed(self._restore):
             setattr(owner, name, orig)
+        self._tracing.__exit__(*exc)
         return False
 
     def counts(self) -> dict:
@@ -1709,20 +1680,21 @@ def train_person26(device: str, where: str):
     """Step 2: person-26 (26 parts x 4 mixtures) trained end to end on
     ``device`` and gated on held-out PCK and APK >= 0.9; the cost split
     printed.  Returns (model, train positives, negatives, held)."""
-    from partsbaseddetector_tpu_torch.ops import walk
     from partsbaseddetector_tpu_torch.tools.datasets import (
         PERSON26_MIRROR, PERSON26_PARENTS, synthetic_skeletons)
+    from partsbaseddetector_tpu_torch.utils import profiling
     pos, neg = synthetic_skeletons(n=14, seed=7)
     train, held = pos[:P26_NTRAIN], pos[P26_NTRAIN:]
     neg = neg[:P26_NNEG]
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    walk.LAUNCHES = 0
-    model, clock, total = train_timed(
-        "person26", train, neg, PERSON26_PARENTS, P26_TRAIN, device,
-        mirror_map=PERSON26_MIRROR)
-    launches = walk.LAUNCHES
+    with profiling.tracing():
+        n0 = walk_launches()
+        model, clock, total = train_timed(
+            "person26", train, neg, PERSON26_PARENTS, P26_TRAIN, device,
+            mirror_map=PERSON26_MIRROR)
+        launches = walk_launches() - n0
     P, nmix = model.components[0].nparts, P26_TRAIN["nmix"]
     if P != 26 or model.nfilters != P * nmix:
         raise RuntimeError(f"train: person-26 gave {P} parts, "

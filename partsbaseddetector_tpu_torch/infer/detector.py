@@ -18,7 +18,6 @@ frames of a batch folded into the level axis:
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import (Callable, ContextManager, Dict, Iterator, List,
                     Optional, Sequence, Tuple)
@@ -39,14 +38,13 @@ from partsbaseddetector_tpu_torch.ops.conv import CONV_ENGINES  # noqa: F401
 from partsbaseddetector_tpu_torch.ops.dp import dp_min_levels
 from partsbaseddetector_tpu_torch.ops.hog import hog_features
 from partsbaseddetector_tpu_torch.ops.imageops import pyr_down, resize_linear
+from partsbaseddetector_tpu_torch.utils import profiling
 
 #: a stage timer: stage(name) is a context manager around that stage's
-#: work (chip_smoke.py records CUDA events with it)
+#: work (utils/profiling.CudaStageTimer records CUDA events with it).  The
+#: default, profiling.stage, records the stages as spans of the port's
+#: tracer while it is on; a hook the caller passes replaces it.
 StageTimer = Callable[[str], ContextManager]
-
-
-def _no_stage(name: str) -> ContextManager:
-    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -146,7 +144,7 @@ def _dp_groups(bucket, dp_split: int):
 
 
 def _ladder_hog(images: torch.Tensor, plan: PyramidPlan, norient: int,
-                flen: int, stage: StageTimer = _no_stage
+                flen: int, stage: StageTimer = profiling.stage
                 ) -> Iterator[Tuple[object, torch.Tensor, torch.Tensor]]:
     """Stage 1 per bucket: the resize ladder into the bucket's padded
     buffer, then HOG.  images: (B, H, W, C).  Yields (bucket, imsizes
@@ -176,7 +174,7 @@ def _ladder_hog(images: torch.Tensor, plan: PyramidPlan, norient: int,
 
 def pyramid_pdfs(images: torch.Tensor, packed: PackedModel,
                  plan: PyramidPlan, conv_engine: str = "spatial",
-                 stage: StageTimer = _no_stage,
+                 stage: StageTimer = profiling.stage,
                  pdfs_transform: Optional[Callable] = None):
     """Stages 1-2 for every bucket (ladder + HOG + filter-bank conv).
 
@@ -238,7 +236,7 @@ def dp_backtrack_bucket(bucket, pdfs, tsizes, scales,
                         packed: PackedModel, k_per_level: int,
                         compose: str, dp_split: int = 1,
                         walk_impl: str = "cuda", bmask=None,
-                        stage: StageTimer = _no_stage
+                        stage: StageTimer = profiling.stage
                         ) -> List[argmax_ops.Candidates]:
     """Stages 3-4 for one octave bucket of a batch of frames: per (level
     group, component) DP + backtracking, with the batch folded into the
@@ -267,7 +265,12 @@ def dp_backtrack_bucket(bucket, pdfs, tsizes, scales,
         levels = (torch.arange(lo, hi, dtype=torch.int32, device=dev)
                   + bucket.levels[0].index).repeat(B)
         for c, comp in enumerate(packed.components):
-            with stage("dp"):
+            # the tracer's dp spans carry the group: its bucket, by the
+            # bucket's first pyramid level, its levels lo..hi-1 in the
+            # bucket and the component
+            with stage("dp", {"bucket": bucket.levels[0].index, "lo": lo,
+                              "hi": hi, "component": c}) \
+                    if stage is profiling.stage else stage("dp"):
                 res = dp_min_levels(gpdfs, comp, compose, gmask,
                                     true_sizes=gsizes)
             with stage("seeds+sort"):
@@ -292,7 +295,7 @@ def dp_backtrack_bucket(bucket, pdfs, tsizes, scales,
 
 
 def _stage12(images: torch.Tensor, packed: PackedModel, plan: PyramidPlan,
-             conv_engine: str = "spatial", stage: StageTimer = _no_stage,
+             conv_engine: str = "spatial", stage: StageTimer = profiling.stage,
              depth=None, depth_cfg: Optional[DepthPrune] = None,
              pdfs_transform: Optional[Callable] = None):
     """Stages 1-2 of the detection program: pyramid_pdfs, then the
@@ -301,15 +304,16 @@ def _stage12(images: torch.Tensor, packed: PackedModel, plan: PyramidPlan,
     out = pyramid_pdfs(images, packed, plan, conv_engine, stage=stage,
                        pdfs_transform=pdfs_transform)
     if depth is not None and depth_cfg is not None:
-        for bucket, pdfs, _, _ in out:
-            bad = _depth_bad_mask(depth, bucket, depth_cfg)
-            pdfs.masked_fill_(bad[..., None], NEG)
+        with profiling.span("prune"):
+            for bucket, pdfs, _, _ in out:
+                bad = _depth_bad_mask(depth, bucket, depth_cfg)
+                pdfs.masked_fill_(bad[..., None], NEG)
     return out
 
 
 def _stage34(per_bucket, packed: PackedModel, k_per_level: int,
              compose: str, dp_split: int = 1, walk_impl: str = "cuda",
-             stage: StageTimer = _no_stage, part_masks=None
+             stage: StageTimer = profiling.stage, part_masks=None
              ) -> argmax_ops.Candidates:
     """Stages 3-4 of the detection program on _stage12's output: the DP
     and the walk per (bucket, dp group, component), then one stable
@@ -331,7 +335,7 @@ def _stage34(per_bucket, packed: PackedModel, k_per_level: int,
 def _detect_program(images: torch.Tensor, packed: PackedModel,
                     plan: PyramidPlan, k_per_level: int, compose: str,
                     dp_split: int = 1, walk_impl: str = "cuda",
-                    stage: StageTimer = _no_stage, depth=None,
+                    stage: StageTimer = profiling.stage, depth=None,
                     depth_cfg: Optional[DepthPrune] = None,
                     part_masks=None, conv_engine: str = "spatial",
                     pdfs_transform: Optional[Callable] = None
@@ -440,24 +444,36 @@ class Detector:
                                          self.model.interval)
         return self._plans[key]
 
-    def _run(self, frames: torch.Tensor, stage: StageTimer = _no_stage,
+    def _run(self, images, ndim: int, stage: StageTimer = profiling.stage,
              depths=None, part_masks=None) -> argmax_ops.Candidates:
+        """The detection program on host or device images: (H, W[, C])
+        for ndim 3 (one frame), (B, H, W[, C]) for ndim 4."""
         if depths is not None and self.depth_prune is None:
             raise ValueError(
                 "depth map passed but this Detector has no depth_prune "
                 "config; construct Detector(..., depth_prune="
                 "DepthPrune(...))")
-        if depths is not None:
-            depths = device_depths(depths, self.device)
-            depths = depths.reshape(frames.shape[:1] + depths.shape[-2:])
-        plan = self.plan_for(frames.shape[1:3])
-        return _detect_program(
-            frames, self.packed, plan, self.k_per_level, self.compose,
-            self.dp_split, self.walk_impl, stage, depth=depths,
-            depth_cfg=self.depth_prune,
-            part_masks=None if part_masks is None else
-            device_masks(part_masks, self.device),
-            conv_engine=self.conv_engine)
+        with profiling.span("detect.call"):
+            with profiling.span("upload"):
+                frames = device_frames(images, ndim, self.device)
+                if ndim == 3:
+                    frames = frames[None]
+                elif frames.ndim != 4:
+                    raise ValueError(
+                        "detect_batch_raw expects (B, H, W, 3) images, got "
+                        f"shape {tuple(frames.shape)}")
+                if depths is not None:
+                    depths = device_depths(depths, self.device)
+                    depths = depths.reshape(frames.shape[:1]
+                                            + depths.shape[-2:])
+                if part_masks is not None:
+                    part_masks = device_masks(part_masks, self.device)
+            plan = self.plan_for(frames.shape[1:3])
+            return _detect_program(
+                frames, self.packed, plan, self.k_per_level, self.compose,
+                self.dp_split, self.walk_impl, stage, depth=depths,
+                depth_cfg=self.depth_prune, part_masks=part_masks,
+                conv_engine=self.conv_engine)
 
     def detect_raw(self, image, depth=None) -> argmax_ops.Candidates:
         """Detect in one (H, W[, 3]) frame; returns the fixed-capacity
@@ -466,11 +482,10 @@ class Detector:
         ``depth_prune`` config, responses at implausible depths are
         masked before the DP (the reference's detect(im, depth,
         candidates), include/PartsBasedDetector.hpp:172-174)."""
-        frames = device_frames(image, 3, self.device)[None]
-        return self._run(frames, depths=depth).map(lambda x: x[0])
+        return self._run(image, 3, depths=depth).map(lambda x: x[0])
 
     def detect_batch_raw(self, images, depths=None,
-                         stage: StageTimer = _no_stage
+                         stage: StageTimer = profiling.stage
                          ) -> argmax_ops.Candidates:
         """Detect in a (B, H, W[, 3]) stack of frames in one pass: the
         batch is folded into the level axis of the DP and the walk.
@@ -478,19 +493,14 @@ class Detector:
         equal to its detect_raw.  depths: optional (B, dh, dw) depth
         maps, one per frame (needs ``depth_prune``).  stage: optional
         stage timer."""
-        frames = device_frames(images, 4, self.device)
-        if frames.ndim != 4:
-            raise ValueError("detect_batch_raw expects (B, H, W, 3) "
-                             f"images, got shape {tuple(frames.shape)}")
-        return self._run(frames, stage, depths=depths)
+        return self._run(images, 4, stage, depths=depths)
 
     def detect_masked_raw(self, image, part_masks) -> argmax_ops.Candidates:
         """Detection with per-part placement masks (latent-positive
         search).  part_masks: per-bucket list of (L, P, fh, fw) bool
         arrays (train/features.part_overlap_masks stacked per plan
         bucket)."""
-        frames = device_frames(image, 3, self.device)[None]
-        return self._run(frames, part_masks=part_masks).map(
+        return self._run(image, 3, part_masks=part_masks).map(
             lambda x: x[0])
 
     def pyramid_features(self, image) -> List[np.ndarray]:
@@ -524,21 +534,25 @@ class Detector:
                                  max_detections: Optional[int] = None
                                  ) -> List[Detection]:
         """Convert one frame's Candidates to host Detections (valid
-        entries only, preserving order)."""
-        score = cands.score.cpu().numpy()
-        valid = cands.valid.cpu().numpy()
-        comp = cands.component.cpu().numpy()
-        level = cands.level.cpu().numpy()
-        boxes = cands.boxes.cpu().numpy()
-        locs = cands.loc.cpu().numpy()
-        out: List[Detection] = []
-        for i in range(len(score)):
-            if not valid[i]:
-                continue
-            out.append(Detection(score=float(score[i]),
-                                 component=int(comp[i]),
-                                 level=int(level[i]),
-                                 parts=boxes[i], locations=locs[i]))
-            if max_detections is not None and len(out) >= max_detections:
-                break
-        return out
+        entries only, preserving order): six reads back from the
+        device, one a field."""
+        with profiling.span("fetch"):
+            profiling.count("readbacks", 6)
+            score = cands.score.cpu().numpy()
+            valid = cands.valid.cpu().numpy()
+            comp = cands.component.cpu().numpy()
+            level = cands.level.cpu().numpy()
+            boxes = cands.boxes.cpu().numpy()
+            locs = cands.loc.cpu().numpy()
+            out: List[Detection] = []
+            for i in range(len(score)):
+                if not valid[i]:
+                    continue
+                out.append(Detection(score=float(score[i]),
+                                     component=int(comp[i]),
+                                     level=int(level[i]),
+                                     parts=boxes[i], locations=locs[i]))
+                if max_detections is not None and \
+                        len(out) >= max_detections:
+                    break
+            return out

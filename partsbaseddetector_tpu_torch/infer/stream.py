@@ -39,6 +39,7 @@ from partsbaseddetector_tpu_torch.post.cloud import (
 from partsbaseddetector_tpu_torch.post.depth import CameraModel
 from partsbaseddetector_tpu_torch.post.poses import poses_from_part_centers
 from partsbaseddetector_tpu_torch.post.rect3 import Rect3
+from partsbaseddetector_tpu_torch.utils import profiling
 
 @dataclasses.dataclass
 class FrameResult:
@@ -140,6 +141,7 @@ class StreamingDetector:
         self.retry_backoff_s = float(retry_backoff_s)
         self._sinks: Dict[str, List[Callable]] = {s: []
                                                   for s in self.SINKS}
+        self._seq = 0        # frames served, the serve.frame spans' seq
 
     @staticmethod
     def _build_backend(model: PartsModel, *, mesh, k_per_level,
@@ -237,8 +239,10 @@ class StreamingDetector:
         unusable: every re-dispatch fails the same way, so it re-raises
         after ``max_retries``; only a fresh process recovers from it."""
         dev = cands_b.score.device
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with profiling.span("serve.wait"):
+            profiling.count("readbacks")
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return cands_b
 
     def _fetch_or_retry(self, cands_b, rgbs, redispatch=None):
@@ -285,10 +289,18 @@ class StreamingDetector:
         feeds only the 3-D post stage (the detector rejects unsolicited
         depth maps)."""
         d = depth if self.detector.depth_prune is not None else None
-        cands = self._fetch_or_retry(
-            self._detect_single(rgb, depth=d), [rgb],
-            redispatch=lambda: self._detect_single(rgb, depth=d))
-        return self._postprocess(cands, rgb, depth, cloud)
+        with self._frame_span(0):
+            cands = self._fetch_or_retry(
+                self._detect_single(rgb, depth=d), [rgb],
+                redispatch=lambda: self._detect_single(rgb, depth=d))
+            return self._postprocess(cands, rgb, depth, cloud)
+
+    def _frame_span(self, index: int):
+        """The serve.frame span of the next frame, ``index`` in its
+        batch."""
+        self._seq += 1
+        return profiling.span("serve.frame", {"seq": self._seq - 1,
+                                              "frame": index})
 
     def process_batch(self, rgbs, depths=None,
                       clouds=None) -> List[FrameResult]:
@@ -306,10 +318,11 @@ class StreamingDetector:
             redispatch=lambda: self._detect_batch(rgbs, depths=d))
         out = []
         for i in range(rgbs.shape[0]):
-            out.append(self._postprocess(
-                cands_b.map(lambda x: x[i]), rgbs[i],
-                None if depths is None else depths[i],
-                None if clouds is None else clouds[i]))
+            with self._frame_span(i):
+                out.append(self._postprocess(
+                    cands_b.map(lambda x: x[i]), rgbs[i],
+                    None if depths is None else depths[i],
+                    None if clouds is None else clouds[i]))
         return out
 
     def stream(self, frames, batch: int = 8, depths=None, clouds=None):
@@ -355,10 +368,14 @@ class StreamingDetector:
             redispatch=lambda: self._detect_batch(rgbs, depths=db))
         for i in range(n_real):
             j = offset + i
-            yield self._postprocess(
-                cands_b.map(lambda x: x[i]), rgbs[i],
-                None if depths is None else depths[j],
-                None if clouds is None else clouds[j])
+            # the span closes before the yield: the consumer's time is
+            # not the frame's
+            with self._frame_span(i):
+                res = self._postprocess(
+                    cands_b.map(lambda x: x[i]), rgbs[i],
+                    None if depths is None else depths[j],
+                    None if clouds is None else clouds[j])
+            yield res
 
     def _postprocess(self, cands: Candidates, rgb: np.ndarray,
                      depth: Optional[np.ndarray],
@@ -366,10 +383,12 @@ class StreamingDetector:
         """sort/NMS -> sinks for one frame's raw candidates
         (ros/Node.cpp:181-249).  The paint NMS runs where the
         candidates are; candidates_to_detections fetches the kept ones
-        to the host."""
+        to the host.  Each step is a span of the port's tracer (a sink's
+        own time counts toward the step that feeds it)."""
         from partsbaseddetector_tpu_torch.ops.nms import paint_nms
 
-        cands = paint_nms(cands, rgb.shape[:2], self.max_overlap)
+        with profiling.span("post.nms"):
+            cands = paint_nms(cands, rgb.shape[:2], self.max_overlap)
         detections = Detector.candidates_to_detections(
             cands, self.max_candidates)
         res = FrameResult(detections=detections)
@@ -378,28 +397,34 @@ class StreamingDetector:
         if self._wants("overlay"):
             from partsbaseddetector_tpu_torch.utils.viz import \
                 draw_detections
-            res.overlay = draw_detections(rgb, detections)
-            self._emit("overlay", res.overlay)
+            with profiling.span("post.overlay"):
+                res.overlay = draw_detections(rgb, detections)
+                self._emit("overlay", res.overlay)
         if self._wants("mask"):
-            res.mask = detections_mask(rgb.shape[:2], detections)
-            self._emit("mask", res.mask)
+            with profiling.span("post.mask"):
+                res.mask = detections_mask(rgb.shape[:2], detections)
+                self._emit("mask", res.mask)
 
         needs_3d = (self._wants("boxes3d") or self._wants("clusters")
                     or self._wants("part_centers")
                     or self._wants("poses"))
         if needs_3d and depth is not None and self.camera is not None:
-            res.boxes3d, res.part_centers = compute_bounding_boxes(
-                detections, rgb.shape[:2], depth, self.camera)
-            self._emit("boxes3d", res.boxes3d)
-            self._emit("part_centers", res.part_centers)
+            with profiling.span("post.boxes3d"):
+                res.boxes3d, res.part_centers = compute_bounding_boxes(
+                    detections, rgb.shape[:2], depth, self.camera)
+                self._emit("boxes3d", res.boxes3d)
+                self._emit("part_centers", res.part_centers)
             if self._wants("clusters") and cloud is not None:
-                pts = cloud.reshape(-1, 3) if cloud.ndim == 3 else cloud
-                if self.remove_planes and cloud.ndim == 3:
-                    pts = organized_multiplane_segmentation(cloud)
-                res.clusters, res.cluster_centers = cluster_objects(
-                    pts, res.boxes3d)
-                self._emit("clusters", res.clusters)
+                with profiling.span("post.clusters"):
+                    pts = cloud.reshape(-1, 3) if cloud.ndim == 3 \
+                        else cloud
+                    if self.remove_planes and cloud.ndim == 3:
+                        pts = organized_multiplane_segmentation(cloud)
+                    res.clusters, res.cluster_centers = cluster_objects(
+                        pts, res.boxes3d)
+                    self._emit("clusters", res.clusters)
             if self._wants("poses"):
-                res.poses = poses_from_part_centers(res.part_centers)
-                self._emit("poses", res.poses)
+                with profiling.span("post.poses"):
+                    res.poses = poses_from_part_centers(res.part_centers)
+                    self._emit("poses", res.poses)
         return res

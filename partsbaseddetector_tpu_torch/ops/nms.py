@@ -17,8 +17,8 @@ step from one KEPT candidate to the next instead: a candidate's
 decision depends only on the candidates kept before it, so between two
 keeps every decision is read off one vectorized test against the state
 the last keep left.  The answer is the sequential one, bit for bit; the
-loop runs (kept + 1) times, each step reading one index back to the
-host.  part_nms builds its pairwise overlaps in row blocks, so memory
+loop runs (kept + 1) times, each step reading an index and its flag
+back to the host.  part_nms builds its pairwise overlaps in row blocks, so memory
 stays O(K^2) bools rather than JAX's fused (K, K, P+1) floats.
 """
 
@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from partsbaseddetector_tpu_torch.ops.argmax import Candidates
+from partsbaseddetector_tpu_torch.utils import profiling
 
 #: rows of part_nms's pairwise overlap computed at once: the block's
 #: (rows, K, P+1) floats stay at ~40 MB for K = 2944, P+1 = 27
@@ -68,9 +69,10 @@ def _with_valid(c: Candidates, valid: torch.Tensor) -> Candidates:
 
 
 def _first_true(flags: torch.Tensor, start: int) -> int:
-    """Index of the first True at or after start, or -1 (one read-back
-    to the host)."""
+    """Index of the first True at or after start, or -1 (two reads back
+    to the host, counted in the tracer's ``readbacks``)."""
     hit = flags[start:]
+    profiling.count("readbacks", 2)
     i = int(torch.argmax(hit.to(torch.uint8)))
     return start + i if bool(hit[i]) else -1
 

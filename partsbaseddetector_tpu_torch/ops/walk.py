@@ -25,10 +25,7 @@ import torch
 
 from partsbaseddetector_tpu_torch.ops import _build
 from partsbaseddetector_tpu_torch.ops.dp import walk_children
-
-#: kernel launches since import (or since a caller reset it to 0); the
-#: plain version does not count
-LAUNCHES = 0
+from partsbaseddetector_tpu_torch.utils import profiling
 
 _COMPOSE = {"reference": 0, "correct": 1}
 
@@ -141,8 +138,9 @@ def walk_tree(scores: torch.Tensor, tmp: torch.Tensor, xs: torch.Tensor,
     parent (P,) int32, parent[p] < p, on the CPU (the kernel's layer
     table is built from it on the host, once per tree and device) or on
     the maps' device (then read back, which waits for the device).
-    Returns (X, Y, Mm) each (L, P, K) int32 (part 0 = the seeds)."""
-    global LAUNCHES
+    Returns (X, Y, Mm) each (L, P, K) int32 (part 0 = the seeds).  Each
+    launch counts one in the tracer's ``walk.launches``; the plain
+    version launches nothing."""
     if scores.device.type == "cpu":
         return walk_tree_plain(scores, tmp, xs, ys, mv, defw, anchor, bias,
                                parent, compose)
@@ -155,6 +153,8 @@ def walk_tree(scores: torch.Tensor, tmp: torch.Tensor, xs: torch.Tensor,
     L, P, M, H, W = scores.shape
     K = xs.shape[-1]
     dev = scores.device
+    if parent.device.type != "cpu":
+        profiling.count("readbacks")
     table, nlayers = _layer_table(tuple(parent.tolist()), dev)
     lib = _build.load_library()
     X = torch.empty((L, P, K), dtype=torch.int32, device=dev)
@@ -173,5 +173,5 @@ def walk_tree(scores: torch.Tensor, tmp: torch.Tensor, xs: torch.Tensor,
             stream)
     if rc != 0:
         raise RuntimeError(f"walk kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    profiling.count("walk.launches")
     return X, Y, Mm

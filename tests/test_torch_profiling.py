@@ -1,6 +1,7 @@
 """utils/profiling: the plain-Python timers against the JAX package's,
 the detector's stage hook, device_trace on the CPU and device_busy's
-interval arithmetic."""
+interval arithmetic over the traced window (the tracer's spans:
+tests/test_torch_tracing.py)."""
 
 import json
 import os
@@ -55,17 +56,6 @@ def test_stage_timer_on_the_detector_hook():
             profiling.CudaStageTimer()
 
 
-def test_frame_counter():
-    fc = profiling.FrameCounter(window=3)
-    assert fc.tick() is None
-    rates = []
-    for _ in range(4):
-        time.sleep(0.002)
-        rates.append(fc.tick())
-    assert len(fc.times) == 3 and all(r > 0 for r in rates)
-    assert rates[-1] < 1000.0          # at most one tick per 2 ms
-
-
 def test_device_trace_on_the_cpu(tmp_path):
     logdir = str(tmp_path / "trace")
     with profiling.device_trace(logdir) as prof:
@@ -86,13 +76,19 @@ def test_device_busy_intervals():
             name=name, device_type=dev,
             time_range=types.SimpleNamespace(start=a, end=b))
     # us: [0, 100] and [50, 150] overlap, a gap, then [300, 400]; a host
-    # event is not a kernel
-    got = profiling.device_busy([
+    # event is not a kernel, nor is a span's mirror on the device; the
+    # traced window runs from -100 to 900
+    events = [
         ev("k1", 0, 100), ev("k2", 50, 150), ev("k1", 300, 400),
-        ev("host", 0, 1000, DeviceType.CPU)])
+        ev("host", 0, 1000, DeviceType.CPU),
+        ev("stage:dp", 0, 800), ev(profiling.WINDOW, -100, 900),
+        ev(profiling.WINDOW, -100, 900, DeviceType.CPU)]
+    got = profiling.device_busy(events)
     assert got["kernels"] == 3
     assert got["busy_ms"] == pytest.approx(0.25)
-    assert got["span_ms"] == pytest.approx(0.4)
-    assert got["idle_share"] == pytest.approx(1 - 0.25 / 0.4)
+    assert got["window_ms"] == pytest.approx(1.0)
+    assert got["idle_share"] == pytest.approx(1 - 0.25 / 1.0)
     assert got["top"] == [("k1", pytest.approx(0.2), 2),
                           ("k2", pytest.approx(0.1), 1)]
+    with pytest.raises(ValueError, match="trace:window"):
+        profiling.device_busy(events[:3])
