@@ -21,7 +21,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      counts) and with a device spin hiding the host (the kernel alone),
      and the plain version's; the kernel's bound, with the card's
      dependent-load latency in and out of the L2 measured for its
-     latency term; the DP's W-minor copy of tmp;
+     latency term;
+ 3b. the DP kernel vs its plain version on the card: ops/dp.dp_min_levels
+     (csrc/dp.cu) against dp_min_levels_plain on person-26 at the
+     benchmark's width (26 parts x 6 mixtures): the main path's largest
+     group at B=8 (L=16, 118x158) and B=1 (L=2) and its smallest, with
+     true sizes and part masks masking to NEG, with planted ties, on the
+     filter-keyed DP of shared filter ids, on the face-68 tree and on 12
+     mixtures — rootv, rooti, scores and tmp equal, launches as the
+     design states; Candidates end to end at B=8 and B=1 equal; the
+     kernel's time at the largest groups with the L2 warm and flushed,
+     beside its bound and the plain chain's time;
   4. main path: Detector(person_like(), device="cuda") with thresh 0.0
      on 8 seeded 640x480 uint8 frames (detect_batch_raw, B=8): the walk
      kernel's launch count, output shapes, sorted scores; again with
@@ -39,7 +49,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      window and the kernels that take the most device time;
   7. the slice-3 paths, each path that ends in the walk kernel with the
      kernel's launches counted by the port's tracer around it
-     (expected: one launch per dp group and component), ms/frame and
+     (expected: one launch per dp group and component; the DP kernel's,
+     two a depth of the tree, or two a part with shared filter ids, per
+     dp group and component, are checked on every path), ms/frame and
      peak device memory for each:
      (a) person-26 with shared filter ids (aliased_person), B=8: valid
          Candidates, kernel walk == plain walk end to end and on the
@@ -103,7 +115,8 @@ Phases, in order; any failure raises and the script exits non-zero:
  12. StreamingDetector(mesh=make_mesh()) at world size 1: process_batch
      and stream (B=8) and process give the detections of the
      StreamingDetector without a mesh;
- 13. the kernels line (JSON; launches per path beside the main path's),
+ 13. the kernels line (JSON: the walk's and the DP kernel's times and
+     launches a dispatch per path),
      the card line, then the last line {"ok": true, "device": {...}}.
 
 It imports torch, numpy and the port only.
@@ -513,16 +526,245 @@ def phase_kernel_vs_plain(det, frames) -> dict:
         f"{bound['latency_ms']:.4f} ms, at {miss_ns:.1f} ns (L2 miss) = "
         f"{bound['latency_cold_ms']:.4f} ms; gathered "
         f"{bound['gathered_bytes']} B = {bound['gathered_ms']:.4f} ms")
-    # the DP's W-minor store of tmp at this group: one permuted copy
-    src = a["tmp"].contiguous()
-    copy_ms = cuda_ms(lambda: src.transpose(-1, -2).contiguous(), reps=10,
-                      pre=busy)
-    log(f"DP's W-minor copy of tmp at the largest group "
-        f"({src.numel() * 4} B): {copy_ms:.4f} ms")
     return dict(max_abs_err=max_err, kernel_ms=kernel_ms, cold_ms=cold_ms,
                 device_ms=device_ms, device_cold_ms=device_cold_ms,
                 plain_ms=plain_ms, ngroups=ngroups, load_ns=load_ns,
                 miss_ns=miss_ns, rootv=a["rootv"][0], **bound)
+
+
+# ---------------------------------------------------------------- phase 3b
+#: float32 adds or maxes a second (132 SMs x 128 lanes at 1.98 GHz): the
+#: issue rate behind F32_FLOPS, which counts a fused multiply-add as two
+F32_OPS = F32_FLOPS / 2
+
+
+def person26():
+    """person_like() at the benchmark's width (bench_port/configs/
+    person26.json): 26 parts x 6 mixtures, the root's 6 too."""
+    from partsbaseddetector_tpu_torch.models import synthetic
+    return synthetic.person_like(nmixtures=6, root_nmixtures=6)
+
+
+def dp_inputs_from_path(det, frames, group_index: int):
+    """One dp group of det's main path on these frames, from the port's
+    own stages 1-2: (pdfs (B*Lg, gfh, gfw, F), true sizes (B*Lg, 2)),
+    as dp_backtrack_bucket hands them to dp_min_levels."""
+    from partsbaseddetector_tpu_torch.infer.detector import (_dp_groups,
+                                                             pyramid_pdfs)
+    plan = det.plan_for(IMG)
+    groups = [(b, g) for b in plan.buckets
+              for g in _dp_groups(b, det.dp_split)]
+    bucket, (lo, hi, gfh, gfw) = groups[group_index]
+    pdfs = [p for b, p, _, _ in pyramid_pdfs(frames, det.packed, plan)
+            if b.octave == bucket.octave][0]
+    tsizes = torch.tensor([lv.featsize for lv in bucket.levels[lo:hi]],
+                          dtype=torch.int32, device=frames.device)
+    return (pdfs[:, lo:hi, :gfh, :gfw].flatten(0, 1),
+            tsizes.repeat(frames.shape[0], 1))
+
+
+def dp_launches_per_group(components) -> int:
+    """The DP kernel's launches for one dp group, by its design: two a
+    depth of each component's tree, two a part where filter ids are
+    shared (the filter-keyed DP runs part by part)."""
+    from partsbaseddetector_tpu_torch.ops.dp import dp_schedule
+    return sum(2 * (c.nparts - 1) if c.aliased
+               else 2 * len(dp_schedule(c.parent_static))
+               for c in components)
+
+
+def expected_dp_launches(det, imshape) -> int:
+    from partsbaseddetector_tpu_torch.infer.detector import _dp_groups
+    plan = det.plan_for(imshape)
+    return (sum(len(_dp_groups(b, det.dp_split)) for b in plan.buckets)
+            * dp_launches_per_group(det.packed.components))
+
+
+def dp_work(L: int, P: int, M: int, H: int, W: int):
+    """(candidates, bytes) of one group's DP: every (output, source) pair
+    of the x pass (W a row) and the y pass (H a column) of the P-1 parts,
+    and every (child, parent) mixture pair at each cell; the scores read
+    once, tmp written once and the scores written once."""
+    cand = L * (P - 1) * M * H * W * (W + H + M)
+    return cand, 3 * L * P * M * H * W * 4
+
+
+def with_plain_dp(fn):
+    """fn() with the detector's DP on the plain chain (the card's
+    reference for Candidates end to end)."""
+    import partsbaseddetector_tpu_torch.infer.detector as detector
+    from partsbaseddetector_tpu_torch.ops import dp
+    kernel = detector.dp_min_levels
+    detector.dp_min_levels = dp.dp_min_levels_plain
+    try:
+        return fn()
+    finally:
+        detector.dp_min_levels = kernel
+
+
+def dp_case(comp, pdfs, sizes, masks=None):
+    return dict(comp=comp, pdfs=pdfs, sizes=sizes, masks=masks)
+
+
+def phase_dp_kernel(frames) -> dict:
+    import dataclasses
+    from partsbaseddetector_tpu_torch.infer.detector import (Detector,
+                                                             _dp_groups)
+    from partsbaseddetector_tpu_torch.models import synthetic
+    from partsbaseddetector_tpu_torch.models.part_tree import pack_model
+    from partsbaseddetector_tpu_torch.ops import dp
+    m26 = person26()
+    m26.thresh = -1e9
+    det = Detector(m26, k_per_level=K, device="cuda")
+    comp = det.packed.components[0]
+    plan = det.plan_for(IMG)
+    ngroups = sum(len(_dp_groups(b, det.dp_split)) for b in plan.buckets)
+    one = frames[:1]
+    big8 = dp_inputs_from_path(det, frames, 0)
+    big1 = dp_inputs_from_path(det, one, 0)
+    small8 = dp_inputs_from_path(det, frames, ngroups - 1)
+    L, H, W, F = big8[0].shape
+    log(f"DP kernel: person-26 x 6 mixtures, largest group L={L} H={H} "
+        f"W={W} (B={BATCH}), L={big1[0].shape[0]} (B=1); smallest "
+        f"{tuple(small8[0].shape[:3])}; depth "
+        f"{len(dp.dp_schedule(comp.parent_static))}")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    P = comp.nparts
+    masks1 = torch.rand((big1[0].shape[0], P, H, W), generator=g,
+                        device="cuda") < 0.7
+    # planted ties: whole-number responses, no deformation cost, no
+    # pair bias (padded slots keep NEG)
+    flat = dataclasses.replace(
+        comp, defw=torch.zeros_like(comp.defw),
+        bias=torch.where(comp.bias > -1e29, 0.0, comp.bias))
+    ties = torch.randint(-2, 3, big8[0].shape, generator=g,
+                         device="cuda").float()
+    alias = pack_model(aliased_person(), "cuda").components[0]
+    face = pack_model(synthetic.face_like(), "cuda")
+    m12 = pack_model(synthetic.person_like(nmixtures=12, root_nmixtures=2),
+                     "cuda")
+    if not alias.aliased:
+        raise RuntimeError("the aliased fixture does not pack as aliased")
+
+    def rand_pdfs(packed, L, h, w, seed):
+        gg = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn((L, h, w, packed.nfilters), generator=gg,
+                           device="cuda")
+
+    def sizes_of(L, h, w):
+        return torch.tensor([[h - i % 3, w - i % 5] for i in range(L)],
+                            dtype=torch.int32, device="cuda")
+
+    apdfs = torch.randn((L, H, W, alias.filterid.max().item() + 1),
+                        generator=g, device="cuda")
+    cases = {
+        "path-largest-B8": dp_case(comp, *big8),
+        "path-largest-B1": dp_case(comp, *big1),
+        "path-smallest-B8": dp_case(comp, *small8),
+        "masked-largest-B1": dp_case(comp, *big1, masks1),
+        "ties-largest-B8": dp_case(flat, ties, big8[1]),
+        "aliased-largest": dp_case(alias, apdfs, big8[1]),
+        "aliased-masked": dp_case(alias, apdfs[:big1[0].shape[0]],
+                                  big1[1], masks1[:, :alias.nparts]),
+        "face68-40x52": dp_case(face.components[0],
+                                rand_pdfs(face, 4, 40, 52, 14),
+                                sizes_of(4, 40, 52)),
+        "mix12-118x158": dp_case(m12.components[0],
+                                 rand_pdfs(m12, 2, 118, 158, 15),
+                                 sizes_of(2, 118, 158)),
+    }
+    for name, c in cases.items():
+        args = (c["pdfs"], c["comp"], "reference", c["masks"], c["sizes"])
+        got, n = counted(lambda: dp.dp_min_levels(*args))
+        want = dp_launches_per_group((c["comp"],))
+        ref = dp.dp_min_levels_plain(*args)
+        torch.cuda.synchronize()
+        for f, a, b in zip(got._fields, got, ref):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"DP kernel != plain on {name}: {f}")
+        if LAST["dp"] != want:
+            raise RuntimeError(f"DP kernel on {name}: {LAST['dp']} "
+                               f"launches, expected {want}")
+        log(f"dp {name:18s}: rootv, rooti, scores, tmp equal; "
+            f"{LAST['dp']} launches; {tuple(c['pdfs'].shape[:3])}")
+
+    # Candidates end to end, the kernel's DP against the plain chain's
+    for what, fr in ((f"B={BATCH}", frames), ("B=1", one)):
+        got = det.detect_batch_raw(fr)
+        ref = with_plain_dp(lambda: det.detect_batch_raw(fr))
+        equal_candidates(got, ref, f"DP kernel vs plain chain, person-26 "
+                                   f"x 6, thresh -1e9, {what}")
+
+    # time at the largest groups: the kernel alone (dp_tree on the
+    # group's masked scores, reset before each run outside the timing)
+    flush = l2_flush()
+    out = {}
+    for what, (pdfs, sizes) in (("B8", big8), ("B1", big1)):
+        Lg = pdfs.shape[0]
+        keep = (comp.mix_valid[None, :, :, None, None]
+                & dp._inbounds(H, W, sizes)[:, None, None])
+        scores0 = torch.where(keep, pdfs.movedim(-1, 1)[
+            :, comp.filterid.long()], dp.NEG)
+        scores = scores0.clone()
+        tmp = dp._x_pass_buffer(scores)
+        layers = dp.dp_schedule(comp.parent_static)
+        run = lambda: dp.dp_tree(scores, tmp, comp, layers)  # noqa: E731
+
+        def reset_sync():
+            scores.copy_(scores0)
+            torch.cuda.synchronize()
+
+        def reset_busy():
+            scores.copy_(scores0)
+            busy()
+
+        def reset_flush_busy():
+            scores.copy_(scores0)
+            flush()
+            busy()
+
+        ms = cuda_ms(run, reps=30, warmup=3, pre=reset_sync)
+        dev_ms = cuda_ms(run, reps=30, warmup=3, pre=reset_busy)
+        dev_cold = cuda_ms(run, reps=30, warmup=3, pre=reset_flush_busy)
+        reset_sync()
+        run()
+        ref = dp.dp_min_levels_plain(pdfs, comp, "reference",
+                                     true_sizes=sizes)
+        if not (torch.equal(scores, ref.scores)
+                and torch.equal(tmp, ref.tmp)):
+            raise RuntimeError(f"DP kernel after timing != plain ({what})")
+        plain_ms = cuda_ms(lambda: dp.dp_min_levels_plain(
+            pdfs, comp, "reference", true_sizes=sizes), reps=5, warmup=1)
+        whole_ms = cuda_ms(lambda: dp.dp_min_levels(
+            pdfs, comp, "reference", true_sizes=sizes), reps=30, warmup=3)
+        cand, nbytes = dp_work(Lg, P, comp.maxmix, H, W)
+        t_ops = 2 * cand / F32_OPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"DP kernel at the largest group {what} (L={Lg}, "
+            f"{2 * len(layers)} launches): events around the call "
+            f"{ms:.4f} ms; host hidden by a device spin {dev_ms:.4f} ms "
+            f"with the L2 warm, {dev_cold:.4f} ms flushed; bound "
+            f"{max(t_ops, t_bytes):.4f} ms by "
+            f"{'operations' if t_ops >= t_bytes else 'bytes'} ({cand} "
+            f"candidates at {F32_OPS:.3g} adds or maxes/s = {t_ops:.4f} ms;"
+            f" {nbytes} B = {t_bytes:.4f} ms); the whole dp_min_levels "
+            f"{whole_ms:.4f} ms, its plain chain {plain_ms:.4f} ms")
+        out[what] = dict(ms=ms, device_ms=dev_ms, device_ms_cold=dev_cold,
+                         plain_ms=plain_ms, whole_ms=whole_ms,
+                         bound_ms=max(t_ops, t_bytes), candidates=cand,
+                         bytes=nbytes)
+    # the work of a frame: every group of the plan at B=1
+    cand_frame = bytes_frame = 0
+    for b in plan.buckets:
+        for lo, hi, gfh, gfw in _dp_groups(b, det.dp_split):
+            c, nb = dp_work(hi - lo, P, comp.maxmix, gfh, gfw)
+            cand_frame, bytes_frame = cand_frame + c, bytes_frame + nb
+    log(f"DP work a 640x480 frame ({ngroups} groups): {cand_frame} "
+        f"candidates ({2 * cand_frame / F32_OPS * 1e3:.4f} ms at the "
+        f"float32 issue rate), {bytes_frame} B "
+        f"({bytes_frame / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s)")
+    out.update(candidates_frame=cand_frame, bytes_frame=bytes_frame)
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -557,11 +799,10 @@ def phase_main_path(det, frames, ngroups: int):
     nlevels = len(det.plan_for(IMG).levels)
     P = det.packed.components[0].filterid.shape[0]
     cands, launches = counted(lambda: det.detect_batch_raw(frames))
-    expected = ngroups * len(det.packed.components)
-    log(f"main path: {nlevels} levels, {ngroups} dp groups; walk kernel "
-        f"launches {launches} (expected {expected})")
-    if launches != expected:
-        raise RuntimeError(f"walk launches {launches} != {expected}")
+    log(f"main path: {nlevels} levels, {ngroups} dp groups")
+    expect_launches(f"main path, B={BATCH}", launches,
+                    ngroups * len(det.packed.components),
+                    expected_dp_launches(det, IMG))
     check_candidates(cands, nlevels, P)
     log(f"valid candidates per frame (thresh 0.0): "
         f"{cands.valid.sum(1).tolist()}")
@@ -758,22 +999,40 @@ def walk_launches() -> int:
     return profiling.TRACER.counters.get("walk.launches", 0)
 
 
+#: the DP kernel's launches in the last counted() call
+LAST = {"dp": 0}
+#: the DP kernel's launches a dispatch on each path expect_launches checked
+DP_PATHS = {}
+
+
 def counted(fn):
     """fn() under the port's tracer; returns (result, the walk kernel's
-    launches in it)."""
+    launches in it) and leaves the DP kernel's in LAST["dp"]."""
     from partsbaseddetector_tpu_torch.utils import profiling
     torch.cuda.synchronize()
-    with profiling.tracing():
+    with profiling.tracing() as t:
         n0 = walk_launches()
+        d0 = t.counters.get("dp.launches", 0)
         out = fn()
         torch.cuda.synchronize()
+        LAST["dp"] = t.counters.get("dp.launches", 0) - d0
         return out, walk_launches() - n0
 
 
-def expect_launches(what: str, got: int, expected: int) -> None:
+def expect_launches(what: str, got: int, expected: int,
+                    dp_expected=None) -> None:
+    """The walk's launches of the last counted() call, and with
+    dp_expected the DP kernel's."""
     log(f"{what}: walk kernel launches {got} (expected {expected})")
     if got != expected:
         raise RuntimeError(f"{what}: walk launches {got} != {expected}")
+    if dp_expected is not None:
+        log(f"{what}: DP kernel launches {LAST['dp']} (expected "
+            f"{dp_expected})")
+        if LAST["dp"] != dp_expected:
+            raise RuntimeError(f"{what}: DP launches {LAST['dp']} != "
+                               f"{dp_expected}")
+        DP_PATHS[what] = LAST["dp"]
 
 
 def wall_ms(fn, reps: int = 3):
@@ -844,7 +1103,8 @@ def phase_aliased(frames) -> int:
         raise RuntimeError("the aliased fixture does not pack as aliased")
     cands, n = counted(lambda: det.detect_batch_raw(frames))
     expect_launches(f"aliased person-26, B={BATCH}", n,
-                    expected_launches(det, IMG))
+                    expected_launches(det, IMG),
+                    expected_dp_launches(det, IMG))
     P = det.packed.components[0].filterid.shape[0]
     check_candidates(cands, len(det.plan_for(IMG).levels), P)
     plain = Detector(m, k_per_level=K, device="cuda", walk_impl="torch")
@@ -941,7 +1201,8 @@ def phase_depth(det, frames, cands) -> int:
     depths[torch.rand(depths.shape, generator=g, device="cuda") < 0.1] = 0.0
     pruned, n = counted(lambda: ddet.detect_batch_raw(frames,
                                                       depths=depths))
-    expect_launches(f"depth, B={BATCH}", n, expected_launches(ddet, IMG))
+    expect_launches(f"depth, B={BATCH}", n, expected_launches(ddet, IMG),
+                    expected_dp_launches(ddet, IMG))
     P = det.packed.components[0].filterid.shape[0]
     check_candidates(pruned, len(det.plan_for(IMG).levels), P)
     log(f"depth: valid candidates per frame {pruned.valid.sum(1).tolist()}"
@@ -967,7 +1228,8 @@ def phase_masked(det, frames) -> int:
     masks = [torch.rand((len(b.levels), P) + b.feat_pad, generator=g,
                         device="cuda") < 0.7 for b in plan.buckets]
     got, n = counted(lambda: det.detect_masked_raw(frames[0], masks))
-    expect_launches("masked, one frame", n, expected_launches(det, IMG))
+    expect_launches("masked, one frame", n, expected_launches(det, IMG),
+                    expected_dp_launches(det, IMG))
     check_candidates(got.map(lambda x: x[None]), len(plan.levels), P, 1)
     plain = Detector(det.model, k_per_level=K, device="cuda",
                      walk_impl="torch").detect_masked_raw(frames[0], masks)
@@ -985,7 +1247,8 @@ def phase_fft(frames, cands) -> int:
     m.thresh = 0.0
     fdet = Detector(m, k_per_level=K, conv_engine="fft", device="cuda")
     got, n = counted(lambda: fdet.detect_batch_raw(frames))
-    expect_launches(f"fft, B={BATCH}", n, expected_launches(fdet, IMG))
+    expect_launches(f"fft, B={BATCH}", n, expected_launches(fdet, IMG),
+                    expected_dp_launches(fdet, IMG))
     P = fdet.packed.components[0].filterid.shape[0]
     check_candidates(got, len(fdet.plan_for(IMG).levels), P)
     for b in range(BATCH):
@@ -1288,7 +1551,8 @@ def phase_serving(smi: str) -> dict:
     node.depth_image_callback(rgbs[0], depths_mm[0], clouds[0])   # warm
     _, n1 = counted(lambda: node.depth_image_callback(
         rgbs[1], depths_mm[1], clouds[1]))
-    expect_launches("serve: ROS depth_image_callback, B=1", n1, expected)
+    expect_launches("serve: ROS depth_image_callback, B=1", n1, expected,
+                    expected_dp_launches(det, IMG))
     for i in range(2, NSERVE):
         node.depth_image_callback(rgbs[i], depths_mm[i], clouds[i])
     published = {t.rsplit("/", 1)[1]: len(p.published)
@@ -1880,7 +2144,8 @@ def phase_face68(frames, smi: str) -> int:
     cands, n = counted(lambda: det.detect_batch_raw(frames))
     expect_launches(f"face-68, B={BATCH} ({ngroups} dp groups x "
                     f"{len(det.packed.components)} component)", n,
-                    expected_launches(det, IMG))
+                    expected_launches(det, IMG),
+                    expected_dp_launches(det, IMG))
     check_candidates(cands, len(plan.levels), P)
     log(f"face-68: valid candidates per frame (thresh 0.0): "
         f"{cands.valid.sum(1).tolist()}")
@@ -1920,7 +2185,8 @@ def phase_parallel(model, frames, cands) -> dict:
     bdet = BatchDetector(model, make_mesh(), k_per_level=K)
     got, n = counted(lambda: bdet.detect_batch(frames))
     expect_launches(f"BatchDetector (1, 1), B={BATCH}", n,
-                    expected_launches(bdet, IMG))
+                    expected_launches(bdet, IMG),
+                    expected_dp_launches(bdet, IMG))
     equal_candidates(got, cands,
                      f"BatchDetector (1, 1) vs Detector, B={BATCH}")
     out["batch_sharded"] = n
@@ -1932,7 +2198,9 @@ def phase_parallel(model, frames, cands) -> dict:
     got, n = counted(lambda: sdet.detect_raw(one))
     expect_launches("ScaleShardedDetector (1, 1), one frame", n,
                     len(sdet.plan_for(IMG).buckets)
-                    * len(sdet.packed.components))
+                    * len(sdet.packed.components),
+                    len(sdet.plan_for(IMG).buckets)
+                    * dp_launches_per_group(sdet.packed.components))
     ref = Detector(model, k_per_level=K, dp_split=1, device="cuda")
     equal_candidates(got, ref.detect_raw(one),
                      "ScaleShardedDetector (1, 1) vs Detector(dp_split=1)")
@@ -1945,7 +2213,8 @@ def phase_parallel(model, frames, cands) -> dict:
     got, n = counted(lambda: list(pdet.stream(two)))
     single = Detector(model, k_per_level=K, device="cuda")
     expect_launches("PipelinedDetector (cuda:0, cuda:0), stream of 2", n,
-                    2 * expected_launches(single, IMG))
+                    2 * expected_launches(single, IMG),
+                    2 * expected_dp_launches(single, IMG))
     for i, f in enumerate(two):
         equal_candidates(got[i], single.detect_raw(f),
                          f"PipelinedDetector vs Detector, frame {i}")
@@ -1975,7 +2244,7 @@ def phase_scale_multires(frames) -> int:
     one = frames[0]
     what = "ScaleShardedDetector (1, 1), multires person, one frame"
     got, n = counted(lambda: sdet.detect_raw(one))
-    expect_launches(what, n, 0)
+    expect_launches(what, n, 0, 0)
     equal_candidates(got, mdet.detect_raw(one),
                      f"{what} vs MultiResDetector")
     log(f"{what}: slots {sdet.local_slot_range(IMG)} of buckets "
@@ -2003,7 +2272,8 @@ def phase_stream_mesh(model, frames) -> dict:
     meshed = StreamingDetector(model, mesh=make_mesh(), k_per_level=K)
     got, n = counted(lambda: meshed.process_batch(rgbs))
     expect_launches(f"StreamingDetector(mesh=(1, 1)).process_batch, "
-                    f"B={BATCH}", n, expected_launches(meshed.detector, IMG))
+                    f"B={BATCH}", n, expected_launches(meshed.detector, IMG),
+                    expected_dp_launches(meshed.detector, IMG))
     ref = plain.process_batch(rgbs)
     streamed = list(meshed.stream(list(rgbs), batch=BATCH))
     ndet = 0
@@ -2038,6 +2308,7 @@ def main() -> int:
     frames = torch.randint(0, 256, (BATCH,) + IMG + (3,), generator=g,
                            device="cuda", dtype=torch.uint8)
     kern = phase_kernel_vs_plain(det, frames)
+    dpk = phase_dp_kernel(frames)
     cands, launches, all_c = phase_main_path(det, frames, kern["ngroups"])
     phase_plain_walk_end_to_end(model, frames, cands)
     phase_times(det, frames, smi)
@@ -2069,7 +2340,12 @@ def main() -> int:
         "depth": kern["depth"], "latency_ms": kern["latency_ms"],
         "latency_cold_ms": kern["latency_cold_ms"],
         "load_ns": kern["load_ns"], "miss_ns": kern["miss_ns"],
-        "library_ms": None, "launches_per_path": paths}]}))
+        "library_ms": None, "launches_per_path": paths}, {
+        "name": "dp_tree", "route": "cuda",
+        "source": "partsbaseddetector_tpu_torch/csrc/dp.cu",
+        "replaces": None, "tpu_kernel": None, "equal": True,
+        "largest_group": dpk, "library_ms": None,
+        "launches_per_path": DP_PATHS}]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

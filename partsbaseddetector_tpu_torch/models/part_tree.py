@@ -44,6 +44,9 @@ class PackedComponent:
                          valid mixtures, the buffers its messages are
                          added to in the filter-keyed DP (() for the
                          root)
+      parent_static   -> host copy of parent, from which ops/dp builds
+                         the DP kernel's launch schedule without reading
+                         the device
     """
 
     filterid: torch.Tensor     # (P, M) int32
@@ -57,6 +60,7 @@ class PackedComponent:
     fsize: torch.Tensor        # (P, M) int32
     aliased: bool = False
     message_fids: Tuple[Tuple[int, ...], ...] = ()
+    parent_static: Tuple[int, ...] = ()
 
     @property
     def nparts(self) -> int:
@@ -80,8 +84,6 @@ class PackedModel:
     norient: int
     flen: int
     name: str
-    # host-side copies for the tree walks
-    parent_static: Tuple[Tuple[int, ...], ...]
     # per-component, per-part absolute scale offsets (all zeros for
     # single-resolution models — PartsModel.part_scales)
     scale_static: Tuple[Tuple[int, ...], ...] = ()
@@ -89,6 +91,11 @@ class PackedModel:
     @property
     def nfilters(self) -> int:
         return self.bank.shape[3]
+
+    @property
+    def parent_static(self) -> Tuple[Tuple[int, ...], ...]:
+        """Host copies of the components' trees, for the tree walks."""
+        return tuple(c.parent_static for c in self.components)
 
 
 def message_fids(filterid, parent, nmix) -> Tuple[Tuple[int, ...], ...]:
@@ -113,7 +120,6 @@ def pack_model(model: PartsModel, device=None) -> PackedModel:
         return torch.as_tensor(a, dtype=dtype, device=device)
 
     comps: List[PackedComponent] = []
-    parent_static: List[Tuple[int, ...]] = []
     for comp in model.components:
         P = comp.nparts
         filterid = np.zeros((P, M), np.int32)
@@ -147,6 +153,7 @@ def pack_model(model: PartsModel, device=None) -> PackedModel:
         comps.append(PackedComponent(
             aliased=len(set(fids)) != len(fids),
             message_fids=message_fids(filterid, parent, nmix),
+            parent_static=tuple(int(x) for x in parent),
             filterid=dev(filterid),
             defw=dev(defw),
             anchor=dev(anchor),
@@ -157,7 +164,6 @@ def pack_model(model: PartsModel, device=None) -> PackedModel:
             root_bias=dev(float(model.biasw[comp.parts[0].biasid[0]]),
                           torch.float32),
             fsize=dev(fsize)))
-        parent_static.append(tuple(int(x) for x in parent))
 
     return PackedModel(
         bank=dev(bank_np, torch.float32),
@@ -165,6 +171,6 @@ def pack_model(model: PartsModel, device=None) -> PackedModel:
         thresh=dev(float(model.thresh), torch.float32),
         interval=int(model.interval), binsize=int(model.binsize),
         norient=int(model.norient), flen=int(model.flen),
-        name=model.name, parent_static=tuple(parent_static),
+        name=model.name,
         scale_static=tuple(tuple(model.part_scales(c))
                            for c in range(model.ncomponents)))

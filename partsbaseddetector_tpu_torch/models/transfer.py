@@ -21,14 +21,15 @@ from partsbaseddetector_tpu_torch.ops.common import resolve_device
 
 #: PackedModel fields that are plain Python values, not arrays
 _STATIC = ("interval", "binsize", "norient", "flen", "name",
-           "parent_static", "scale_static")
+           "scale_static")
 
 
 def packed_from_numpy(arrays: Mapping[str, Any],
                       device=None) -> PackedModel:
     """arrays: ``bank`` (FH, FW, C, F), ``thresh`` (), the static fields
     (``interval``, ``binsize``, ``norient``, ``flen``, ``name``,
-    ``parent_static``, optionally ``scale_static``), and ``components``:
+    optionally ``scale_static``; a ``parent_static`` is not read: each
+    component's comes from its ``parent``), and ``components``:
     one mapping per component with the PackedComponent field names
     (``filterid``, ``defw``, ``anchor``, ``bias``, ``parent``, ``nmix``,
     ``mix_valid``, ``root_bias``, ``fsize`` and optionally ``aliased``).
@@ -43,15 +44,15 @@ def packed_from_numpy(arrays: Mapping[str, Any],
     for c in arrays["components"]:
         kw = {f.name: dev(c[f.name])
               for f in dataclasses.fields(PackedComponent)
-              if f.name not in ("aliased", "message_fids")}
+              if f.name not in ("aliased", "message_fids",
+                                "parent_static")}
         comps.append(PackedComponent(
             aliased=bool(c.get("aliased", False)),
             message_fids=message_fids(c["filterid"], c["parent"],
                                       c["nmix"]),
+            parent_static=tuple(int(v) for v in np.asarray(c["parent"])),
             **kw))
     static = {k: arrays[k] for k in _STATIC if k in arrays}
-    static["parent_static"] = tuple(tuple(int(v) for v in par)
-                                    for par in arrays["parent_static"])
     if "scale_static" in static:
         static["scale_static"] = tuple(tuple(int(v) for v in s)
                                        for s in static["scale_static"])

@@ -34,6 +34,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "pbd_walk_tree": ([_P] * 13 + [_I] * 8 + [_P], _I),
     "pbd_chase": ([_P, _I, _P, _P], _I),
+    "pbd_dp_tree": ([_P] * 8 + [_I] * 5 + [_P], _I),
 }
 
 _lock = threading.Lock()

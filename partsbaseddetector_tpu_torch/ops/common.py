@@ -10,7 +10,7 @@ digits, too few for detection parity.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Sequence, Union
 
 import torch
 
@@ -45,3 +45,16 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
             "no CUDA device is available; pass device=\"cpu\" to run "
             "the port on the CPU")
     return device
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: Sequence[int], device: torch.device) -> None:
+    """Raise unless t lies on device with this dtype and shape (a kernel
+    wrapper's check of an argument before it passes the pointer)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")

@@ -3,11 +3,21 @@
 Port of partsbaseddetector_tpu/ops/dp.py: the DP keyed by part slot,
 and the filter-keyed DP for components with shared filter ids
 (``_dp_min_aliased``).  The reference's per-(scale, component) loop
-(reference: src/DynamicProgram.cpp:66-173) becomes a Python loop over
-parts in reverse topological order, P-1 down to 1 — the order of the JAX
+(reference: src/DynamicProgram.cpp:66-173) becomes a loop over parts in
+reverse topological order, P-1 down to 1 — the order of the JAX
 package's ``lax.scan`` — with every level of a group as one batch axis.
 Parts are stored root-first with parent < child, so the loop visits
 children before parents.
+
+A part step is the DT of the part's scores (x pass, then y pass), the
+child->parent mixture-pair bias, the max over child mixtures and the
+add into the parent's scores.  On CUDA tensors every part step of a
+(group, component) runs in the hand-written kernel ``csrc/dp.cu``
+(``dp_tree``: one C call, two launches a depth of the tree); on CPU
+tensors in the plain eager chain (``dp_min_levels_plain``, the
+kernel's reference).  The two are bit-identical: the kernel rounds each
+operation of the penalty and the candidate as eager PyTorch does, a max
+is exact, and sibling messages are added in the loop's order.
 
 As in the JAX package, the forward pass computes only maxima:
   scores[p] — each part's fully accumulated DT input, and
@@ -19,13 +29,24 @@ ops/walk.py).  Padded mixture slots carry NEG so they never win.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from partsbaseddetector_tpu_torch.models.part_tree import PackedComponent
-from partsbaseddetector_tpu_torch.ops.common import NEG
+from partsbaseddetector_tpu_torch.ops import _build
+from partsbaseddetector_tpu_torch.ops.common import NEG, check_tensor
 from partsbaseddetector_tpu_torch.ops.dt import dt_max_x, dt_max_y
+from partsbaseddetector_tpu_torch.utils import profiling
+
+#: mixtures per part the DP kernel takes (csrc/dp.cu's kMaxM)
+KERNEL_MAX_MIXTURES = 16
+
+#: a launch schedule: layers in launch order, each a tuple of groups
+#: (parent, children in descending order); parent -1 sends the message
+#: to a buffer instead of the parent's scores
+Schedule = Tuple[Tuple[Tuple[int, Tuple[int, ...]], ...], ...]
 
 
 class DPResult(NamedTuple):
@@ -61,11 +82,31 @@ def dp_min_levels(pdfs: torch.Tensor, comp: PackedComponent,
     latent search; the reference's overlap masking,
     matlab/detection/detect.m:60-101): every other placement is NEG.
     Components with shared filter ids run the filter-keyed DP
-    (``_dp_min_aliased``)."""
+    (``_dp_min_aliased``).  On CUDA the part steps run in the kernel
+    (``dp_tree``), on the CPU in the plain chain; any other device
+    raises."""
+    if pdfs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dp_min_levels runs on CUDA or the CPU, not "
+                         f"{pdfs.device}")
+    return _dp_min_levels(pdfs, comp, compose, part_masks, true_sizes,
+                          pdfs.device.type == "cuda")
+
+
+def dp_min_levels_plain(pdfs: torch.Tensor, comp: PackedComponent,
+                        compose: str = "reference", part_masks=None,
+                        true_sizes=None) -> DPResult:
+    """dp_min_levels with every part step in the plain eager chain, on
+    any device: the kernel's reference (chip_smoke.py holds the kernel
+    to it on the card)."""
+    return _dp_min_levels(pdfs, comp, compose, part_masks, true_sizes,
+                          False)
+
+
+def _dp_min_levels(pdfs, comp, compose, part_masks, true_sizes,
+                   kernel: bool) -> DPResult:
     if compose not in ("reference", "correct"):
         raise ValueError(compose)
-    P, M = comp.filterid.shape
-    L, H, W = pdfs.shape[:3]
+    H, W = pdfs.shape[1:3]
     pdfs_f = pdfs.movedim(-1, 1)                       # (L, F, H, W)
     # where a cell may hold a part placement, per (level, part)
     allowed = None
@@ -78,29 +119,36 @@ def dp_min_levels(pdfs: torch.Tensor, comp: PackedComponent,
                              device=pdfs.device)
         allowed = pm if allowed is None else allowed & pm
     if comp.aliased:
-        scores, tmp, root_s = _dp_min_aliased(pdfs_f, comp, allowed)
+        scores, tmp, root_s = _dp_min_aliased(pdfs_f, comp, allowed, kernel)
         # as the JAX package's aliased scan: the root bias added to every
         # root slot, padded ones included
         rootw = root_s + comp.root_bias
     else:
-        scores, tmp = _dp_min_part_keyed(pdfs_f, comp, allowed)
+        scores, tmp = _dp_min_part_keyed(pdfs_f, comp, allowed, kernel)
         # root: add the scalar root bias to every root mixture and max
         # (reference: src/DynamicProgram.cpp:162-171)
         rootw = scores[:, 0] + comp.root_bias          # (L, M, H, W)
         rootw = torch.where(comp.mix_valid[0][:, None, None], rootw, NEG)
-    # stored W-minor, so that a column tmp[l, p, m, :, x] is contiguous
-    # for the walk kernel (ops/walk.py): one permuted copy, which costs
-    # the card less than x passes storing W-minor themselves
-    tmp = tmp.transpose(-1, -2).contiguous().transpose(-1, -2)
     return DPResult(rootw.amax(dim=1), _argmax_first(rootw, 1), scores, tmp)
 
 
+def _x_pass_buffer(scores: torch.Tensor) -> torch.Tensor:
+    """tmp for scores (L, P, M, H, W), stored W-minor so that a column
+    tmp[l, p, m, :, x] is contiguous for the y pass and the walk
+    kernel; part 0 has no x pass and holds zeros."""
+    L, P, M, H, W = scores.shape
+    tmp = torch.empty((L, P, M, W, H), dtype=scores.dtype,
+                      device=scores.device).transpose(-1, -2)
+    tmp[:, 0].zero_()
+    return tmp
+
+
 def _dp_min_part_keyed(pdfs_f: torch.Tensor, comp: PackedComponent,
-                       allowed):
+                       allowed, kernel: bool):
     """The DP keyed by part slot, for components whose filter ids are
     all distinct.  pdfs_f (L, F, H, W); allowed: None or a bool mask
     broadcasting to (L, P, H, W).  Returns (scores, tmp), each
-    (L, P, M, H, W), tmp H-minor."""
+    (L, P, M, H, W), tmp stored W-minor."""
     P = comp.filterid.shape[0]
     scores = pdfs_f[:, comp.filterid.long()]           # (L, P, M, H, W)
     # invalid mixture slots must never win any max
@@ -108,11 +156,11 @@ def _dp_min_part_keyed(pdfs_f: torch.Tensor, comp: PackedComponent,
     if allowed is not None:
         keep = keep & allowed[:, :, None]
     scores = torch.where(keep, scores, NEG)
-
+    tmp = _x_pass_buffer(scores)
+    if kernel:
+        dp_tree(scores, tmp, comp, dp_schedule(comp.parent_static))
+        return scores, tmp
     parent = comp.parent.long()
-    # every part's x-pass maxima, written in place; part 0 has none
-    tmp = torch.empty_like(scores)
-    tmp[:, 0].zero_()
     for p in range(P - 1, 0, -1):
         maxv = _part_message(scores[:, p], comp, p, tmp[:, p])
         scores.index_add_(1, parent[p:p + 1], maxv[:, None])
@@ -121,10 +169,10 @@ def _dp_min_part_keyed(pdfs_f: torch.Tensor, comp: PackedComponent,
 
 def _part_message(s: torch.Tensor, comp: PackedComponent, p: int,
                   tmp_p: torch.Tensor) -> torch.Tensor:
-    """Part p's message to its parent, shared by both DP branches: the
-    DT of its scores s (L, M, H, W), x pass written into tmp_p, plus the
-    child->parent mixture-pair bias, maxed over child mixtures.
-    Returns (L, Mp, H, W)."""
+    """Part p's message to its parent in the plain chain, shared by both
+    DP branches: the DT of its scores s (L, M, H, W), x pass written
+    into tmp_p, plus the child->parent mixture-pair bias, maxed over
+    child mixtures.  Returns (L, Mp, H, W)."""
     w = comp.defw[p]                                   # (M, 4)
     anc = comp.anchor[p]                               # (M, 2)
     dt_max_x(s, w[:, 0], w[:, 1], anc[:, 0], out=tmp_p)
@@ -133,7 +181,8 @@ def _part_message(s: torch.Tensor, comp: PackedComponent, p: int,
     return weighted.amax(dim=2)
 
 
-def _dp_min_aliased(pdfs_f: torch.Tensor, comp: PackedComponent, allowed):
+def _dp_min_aliased(pdfs_f: torch.Tensor, comp: PackedComponent, allowed,
+                    kernel: bool):
     """The DP for components with shared filter ids (port of
     partsbaseddetector_tpu/ops/dp.py:_dp_min_aliased).
 
@@ -145,7 +194,9 @@ def _dp_min_aliased(pdfs_f: torch.Tensor, comp: PackedComponent, allowed):
     reads pdf[fid] + acc[fid] when it is visited, and writes
     acc[fid[parent][mp]] += maxv[mp].  Each part's scores are its
     visit-time values, so the walk recomputes argmaxes against what the
-    forward pass used.  Returns (scores, tmp, root scores (L, M, H, W))."""
+    forward pass used.  Part by part, in the loop's order: with
+    ``kernel`` each message comes from one dp_tree call into a buffer.
+    Returns (scores, tmp, root scores (L, M, H, W))."""
     P, M = comp.filterid.shape
     L, F, H, W = pdfs_f.shape
     fid = comp.filterid.long()
@@ -163,10 +214,16 @@ def _dp_min_aliased(pdfs_f: torch.Tensor, comp: PackedComponent, allowed):
         scores[:, p] = torch.where(keep[:, p], s, NEG)
         return scores[:, p]
 
-    tmp = torch.empty_like(scores)
-    tmp[:, 0].zero_()
+    tmp = _x_pass_buffer(scores)
+    msg = torch.empty((L, M, H, W), dtype=scores.dtype,
+                      device=scores.device) if kernel else None
     for p in range(P - 1, 0, -1):
-        maxv = _part_message(read(p), comp, p, tmp[:, p])
+        s = read(p)
+        if kernel:
+            dp_tree(scores, tmp, comp, (((-1, (p,)),),), msg)
+            maxv = msg
+        else:
+            maxv = _part_message(s, comp, p, tmp[:, p])
         # one add per valid parent mixture, in mixture order, as the JAX
         # package's scatter-add applies shared ids; padded parent
         # mixtures repeat mixture 0's id and hold garbage: they are left
@@ -175,6 +232,145 @@ def _dp_min_aliased(pdfs_f: torch.Tensor, comp: PackedComponent, allowed):
         for mp, f in enumerate(comp.message_fids[p]):
             acc[:, f] += maxv[:, mp]
     return scores, tmp, read(0)
+
+
+# ---------------------------------------------------------------------
+# the DP kernel (csrc/dp.cu): its schedule, argument checks and launch
+# ---------------------------------------------------------------------
+
+def depth_layers(parent: Union[Sequence[int], torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The parts of a tree in depth order (the walk kernel's schedule,
+    and the DP kernel's in reverse).
+
+    parent: (P,) with parent[p] < p for p > 0 (parent[0], the root's, is
+    ignored).  Returns (order (P,), offsets (depth + 2,)), int32 on the
+    CPU: layer d is order[offsets[d]:offsets[d + 1]], its parts
+    ascending; layer 0 is the root alone."""
+    par = parent.tolist() if isinstance(parent, torch.Tensor) else parent
+    depth = [0] * len(par)
+    for p in range(1, len(par)):
+        if not 0 <= par[p] < p:
+            raise ValueError(f"parent[{p}] = {par[p]}: a part's parent "
+                             f"must precede it")
+        depth[p] = depth[par[p]] + 1
+    order = sorted(range(len(par)), key=lambda p: (depth[p], p))
+    counts = [0] * (max(depth, default=0) + 1)
+    for d in depth:
+        counts[d] += 1
+    offsets = [0]
+    for n in counts:
+        offsets.append(offsets[-1] + n)
+    return (torch.tensor(order, dtype=torch.int32),
+            torch.tensor(offsets, dtype=torch.int32))
+
+
+@functools.lru_cache(maxsize=64)
+def dp_schedule(parent: Tuple[int, ...]) -> Schedule:
+    """The DP kernel's launch schedule for a tree (parent[p] < p): the
+    depths from the deepest to 1, each a tuple of groups (parent q, the
+    children of q in descending order), q ascending.  Every part of a
+    depth depends only on deeper ones, so a depth is one launch of each
+    pass; a group's messages are added to q in descending child order,
+    as the plain loop over P-1 ... 1 adds them."""
+    order, offsets = depth_layers(parent)
+    order, offsets = order.tolist(), offsets.tolist()
+    layers = []
+    for d in range(len(offsets) - 2, 0, -1):
+        groups = {}
+        for p in reversed(order[offsets[d]:offsets[d + 1]]):
+            groups.setdefault(parent[p], []).append(p)
+        layers.append(tuple((q, tuple(c)) for q, c in sorted(groups.items())))
+    return tuple(layers)
+
+
+@functools.lru_cache(maxsize=512)
+def _schedule_table(layers: Schedule, device: torch.device):
+    """(host, on_device, top): the schedule as csrc/dp.cu reads it,
+    int32, on the host and on ``device`` — nlayers, ngroups, nparts; per
+    layer its parts' and its groups' ranges (part_lo, part_hi, group_lo,
+    group_hi); per group (parent, lo, hi), its children parts[lo:hi];
+    then the parts — and the largest part index it names."""
+    lay, grp, parts = [], [], []
+    for layer in layers:
+        lay += [len(parts), len(parts) + sum(len(c) for _, c in layer),
+                len(grp) // 3, len(grp) // 3 + len(layer)]
+        for q, children in layer:
+            grp += [q, len(parts), len(parts) + len(children)]
+            parts += children
+    host = torch.tensor([len(layers), len(grp) // 3, len(parts)]
+                        + lay + grp + parts, dtype=torch.int32)
+    return host, host.to(device), max(parts + grp[::3], default=0)
+
+
+def check_dp_args(scores, tmp, defw, anchor, bias, msg=None) -> None:
+    """Raise unless the arguments are what the DP kernel takes: float32
+    scores (L, P, M, H, W), contiguous; tmp of that shape stored W-minor
+    (tmp.transpose(-1, -2) contiguous); defw (P, M, 4) float32, anchor
+    (P, M, 2) int32 and bias (P, M, M) float32, contiguous; msg, if
+    given, (L, M, H, W) float32 contiguous; all on scores' device,
+    4-byte aligned; at most KERNEL_MAX_MIXTURES mixtures."""
+    if scores.dim() != 5:
+        raise ValueError(f"scores has shape {tuple(scores.shape)}, "
+                         f"expected (L, P, M, H, W)")
+    L, P, M, H, W = scores.shape
+    dev = scores.device
+    f32 = torch.float32
+    args = [("scores", scores, f32, (L, P, M, H, W)),
+            ("tmp", tmp, f32, (L, P, M, H, W)),
+            ("defw", defw, f32, (P, M, 4)),
+            ("anchor", anchor, torch.int32, (P, M, 2)),
+            ("bias", bias, f32, (P, M, M))]
+    if msg is not None:
+        args.append(("msg", msg, f32, (L, M, H, W)))
+    for name, t, dtype, shape in args:
+        check_tensor(name, t, dtype, shape, dev)
+        if name == "tmp":
+            if not t.transpose(-1, -2).is_contiguous():
+                raise ValueError(
+                    "tmp is not stored W-minor: the kernel writes "
+                    "tmp.transpose(-1, -2) as a contiguous (L, P, M, W, H) "
+                    "tensor")
+        elif not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+        if t.data_ptr() % 4:
+            raise ValueError(f"{name} is not 4-byte aligned")
+    if M > KERNEL_MAX_MIXTURES:
+        raise ValueError(f"{M} mixtures: the DP kernel takes at most "
+                         f"{KERNEL_MAX_MIXTURES}")
+
+
+def dp_tree(scores: torch.Tensor, tmp: torch.Tensor, comp: PackedComponent,
+            layers: Schedule, msg: Optional[torch.Tensor] = None) -> None:
+    """The part steps of ``layers`` (a dp_schedule, or one part with
+    parent -1) in the kernel, on CUDA tensors: one C call that launches
+    the x pass and the y pass of each layer, in place.
+
+    The x pass of part p writes tmp[:, p]; the y pass adds the message
+    (the DT, the pair bias, the max over child mixtures) into
+    scores[:, q] for a group's parent q, children in the group's order,
+    or, for parent -1, writes it to msg (L, M, H, W).  Each call counts
+    its launches, two a layer, in the tracer's ``dp.launches``."""
+    if scores.device.type != "cuda":
+        raise ValueError(f"dp_tree runs on CUDA, not {scores.device}")
+    check_dp_args(scores, tmp, comp.defw, comp.anchor, comp.bias, msg)
+    L, P, M, H, W = scores.shape
+    if not layers or L == 0:
+        return
+    host, table, top = _schedule_table(layers, scores.device)
+    if top >= P:
+        raise ValueError(f"the schedule names part {top} of {P}")
+    lib = _build.load_library()
+    with torch.cuda.device(scores.device):
+        stream = torch.cuda.current_stream(scores.device).cuda_stream
+        rc = lib.pbd_dp_tree(
+            comp.defw.data_ptr(), comp.anchor.data_ptr(),
+            comp.bias.data_ptr(), host.data_ptr(), table.data_ptr(),
+            scores.data_ptr(), tmp.data_ptr(),
+            None if msg is None else msg.data_ptr(), L, P, M, H, W, stream)
+    if rc != 0:
+        raise RuntimeError(f"DP kernel launch failed: CUDA error {rc}")
+    profiling.count("dp.launches", 2 * len(layers))
 
 
 def dp_min(pdfs: torch.Tensor, comp: PackedComponent,

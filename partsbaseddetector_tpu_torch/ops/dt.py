@@ -12,7 +12,9 @@ include/DistanceTransform.hpp:152-182).  The dense form broadcasts an
 penalty expression ``-w0*d*d - w1*d`` kept in the JAX package's order so
 the maxima are the same floats.  Eager torch materializes the
 (..., N, N) candidate tensor that XLA fuses away: about 0.75 GB at the
-largest person-26 group with B=8.
+largest person-26 group with B=8.  So these two passes are the DP's
+plain version (ops/dp.py's CPU path and the reference on the card); on
+CUDA tensors the DP runs them in the kernel csrc/dp.cu.
 """
 
 from __future__ import annotations

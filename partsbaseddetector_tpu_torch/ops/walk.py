@@ -10,7 +10,7 @@ The two are bit-identical: the kernel rounds every operation of the
 candidate expression as eager PyTorch does, and its argmaxes are
 first-wins.
 
-The kernel walks the tree one depth at a time (``depth_layers``) and
+The kernel walks the tree one depth at a time (ops/dp.depth_layers) and
 reads ``tmp`` stored W-minor, so that a column is contiguous:
 ops/dp.dp_min_levels returns it so, and ``walk_tree`` refuses any other
 storage on CUDA rather than copy it.
@@ -19,12 +19,13 @@ storage on CUDA rather than copy it.
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple, Union
+from typing import Tuple
 
 import torch
 
 from partsbaseddetector_tpu_torch.ops import _build
-from partsbaseddetector_tpu_torch.ops.dp import walk_children
+from partsbaseddetector_tpu_torch.ops.common import check_tensor
+from partsbaseddetector_tpu_torch.ops.dp import depth_layers, walk_children
 from partsbaseddetector_tpu_torch.utils import profiling
 
 _COMPOSE = {"reference": 0, "correct": 1}
@@ -48,32 +49,6 @@ def walk_tree_plain(scores, tmp, xs, ys, mv, defw, anchor, bias, parent,
             torch.stack(mvv, dim=1))
 
 
-def depth_layers(parent: Union[Sequence[int], torch.Tensor]
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The parts of a tree in depth order, the kernel's schedule.
-
-    parent: (P,) with parent[p] < p for p > 0 (parent[0], the root's, is
-    ignored).  Returns (order (P,), offsets (depth + 2,)), int32 on the
-    CPU: layer d is order[offsets[d]:offsets[d + 1]], its parts
-    ascending; layer 0 is the root alone."""
-    par = parent.tolist() if isinstance(parent, torch.Tensor) else parent
-    depth = [0] * len(par)
-    for p in range(1, len(par)):
-        if not 0 <= par[p] < p:
-            raise ValueError(f"parent[{p}] = {par[p]}: a part's parent "
-                             f"must precede it")
-        depth[p] = depth[par[p]] + 1
-    order = sorted(range(len(par)), key=lambda p: (depth[p], p))
-    counts = [0] * (max(depth, default=0) + 1)
-    for d in depth:
-        counts[d] += 1
-    offsets = [0]
-    for n in counts:
-        offsets.append(offsets[-1] + n)
-    return (torch.tensor(order, dtype=torch.int32),
-            torch.tensor(offsets, dtype=torch.int32))
-
-
 @functools.lru_cache(maxsize=64)
 def _layer_table(parent: Tuple[int, ...], device: torch.device):
     """(table, nlayers) for the kernel: table is parent, then
@@ -82,16 +57,6 @@ def _layer_table(parent: Tuple[int, ...], device: torch.device):
     table = torch.cat([torch.tensor(parent, dtype=torch.int32), offsets,
                        order]).to(device)
     return table, offsets.numel() - 1
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
 
 
 def check_walk_args(scores, tmp, xs, ys, mv, defw, anchor, bias, parent):
@@ -111,7 +76,7 @@ def check_walk_args(scores, tmp, xs, ys, mv, defw, anchor, bias, parent):
             ("mv", mv, i32, (L, K)), ("defw", defw, f32, (P, M, 4)),
             ("anchor", anchor, f32, (P, M, 2)),
             ("bias", bias, f32, (P, M, M))):
-        _check(name, t, dtype, shape, dev)
+        check_tensor(name, t, dtype, shape, dev)
         if name == "tmp":
             if not t.transpose(-1, -2).is_contiguous():
                 raise ValueError(
@@ -122,7 +87,7 @@ def check_walk_args(scores, tmp, xs, ys, mv, defw, anchor, bias, parent):
             raise ValueError(f"{name} is not contiguous")
         if name in ("scores", "tmp") and t.data_ptr() % 8:
             raise ValueError(f"{name} is not 8-byte aligned")
-    _check("parent", parent, i32, (P,),
+    check_tensor("parent", parent, i32, (P,),
            parent.device if parent.device.type == "cpu" else dev)
 
 

@@ -34,8 +34,10 @@ Here the port has one tracer and the device views it is measured by:
   Counters: ``readbacks`` (device-to-host reads and synchronizes that
   stall the launch queue: paint/part NMS's two reads a step, the six
   fields a fetch reads, the serving wait, the walk's read of a
-  ``parent`` given on the device) and ``walk.launches`` (launches of
-  the walk kernel).
+  ``parent`` given on the device), ``walk.launches`` (launches of
+  the walk kernel) and ``dp.launches`` (launches of the DP kernel,
+  csrc/dp.cu: two a depth of the tree a (group, component) call, two a
+  part on the filter-keyed DP of shared filter ids).
 * ``CudaStageTimer``: CUDA events at the detector's ``stage=`` hook,
   device ms per stage of one call;
 * ``device_trace`` and ``device_busy``: a torch.profiler trace of a

@@ -20,6 +20,7 @@ from partsbaseddetector_tpu_torch.ops import dp as dp_t
 from partsbaseddetector_tpu_torch.ops import dt as dt_t
 from test_aliasing import aliased_chain
 from test_torch_models import port_packed
+from test_torch_walk import _random_parent
 
 torch.set_num_threads(1)
 
@@ -243,3 +244,211 @@ def test_composed_tables(maker, hw, compose):
         assert a.dtype == torch.int32 and a.shape == b.shape, name
         np.testing.assert_array_equal(a.numpy(), np.asarray(b),
                                       err_msg=name)
+
+
+# ---------------------------------------------------------------------
+# the DP kernel's host side (ops/dp.py: dp_schedule, its table, the
+# argument check, the device dispatch); the kernel itself runs on the
+# card only, where chip_smoke.py holds it to dp_min_levels_plain
+
+def _dp_inputs(maker, seed, masked):
+    """Seeded responses, true sizes and (optionally) part masks for one
+    group of 3 levels at 9x12; maker "aliased" is test_aliasing's
+    aliased_chain (the filter-keyed DP)."""
+    model = (aliased_chain(13) if maker == "aliased"
+             else getattr(syn_jax, maker)(seed=2))
+    comp = port_packed(tree_jax.pack_model(model)).components[0]
+    rng = np.random.default_rng(seed)
+    L, hw = 3, (9, 12)
+    F = int(comp.filterid.max()) + 1
+    pdfs = rng.standard_normal((L,) + hw + (F,)).astype(np.float32)
+    sizes = np.array([hw, (7, 10), (5, 6)], np.int32)
+    masks = _masks(rng, L, comp.nparts, hw) if masked else None
+    return comp, torch.from_numpy(pdfs), torch.from_numpy(sizes), (
+        None if masks is None else torch.from_numpy(masks))
+
+
+def _digest(res) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in res:
+        h.update(t.contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+#: sha256 (first 16 hex digits) of rootv, rooti, scores and tmp, as the
+#: eager chain computed them before the DP kernel (ops/dp.py with the x
+#: pass stored H-minor, then one permuted copy), on _dp_inputs
+BEFORE_KERNEL = {
+    ("person_like", False): "fc15008a507a7c84",
+    ("person_like", True): "3bee1146980cb2e7",
+    ("aliased", False): "60b72d6ec6de3501",
+    ("aliased", True): "675c57ae6595d332",
+}
+
+
+@pytest.mark.parametrize("maker,masked", list(BEFORE_KERNEL))
+def test_dp_min_levels_cpu_is_the_plain_chain(maker, masked):
+    """On CPU tensors dp_min_levels runs the plain chain: bit for bit the
+    results of the eager chain before the kernel, on the part-keyed and
+    the filter-keyed branches, with and without part masks; tmp comes
+    back stored W-minor."""
+    comp, pdfs, sizes, masks = _dp_inputs(maker, 21, masked)
+    assert comp.aliased == (maker == "aliased")
+    got = dp_t.dp_min_levels(pdfs, comp, "reference", masks, sizes)
+    plain = dp_t.dp_min_levels_plain(pdfs, comp, "reference", masks, sizes)
+    for f, a, b in zip(got._fields, got, plain):
+        assert torch.equal(a, b), f
+    assert got.tmp.transpose(-1, -2).is_contiguous()
+    assert _digest(got) == BEFORE_KERNEL[maker, masked]
+
+
+def _tree(maker, seed):
+    if seed is None:
+        return tuple(tree_jax.pack_model(
+            getattr(syn_jax, maker)()).parent_static[0])
+    return tuple(_random_parent(seed))
+
+
+DP_TREES = ([("tiny", None), ("person_like", None), ("face_like", None)]
+            + [("random", seed) for seed in range(12)])
+
+
+@pytest.mark.parametrize("maker,seed", DP_TREES,
+                         ids=[m if s is None else f"{m}-{s}"
+                              for m, s in DP_TREES])
+def test_dp_schedule_against_a_tree_walk(maker, seed):
+    """The kernel's launch schedule: the depths from the deepest to 1,
+    every non-root part once, in the layer of its depth; a layer's
+    groups are its parents ascending, each with all its children,
+    descending; the table csrc/dp.cu reads decodes to the same."""
+    parent = _tree(maker, seed)
+    P = len(parent)
+    depth, children = [0] * P, {}
+    for p in range(1, P):                  # a walk down the tree
+        depth[p] = depth[parent[p]] + 1
+        children.setdefault(parent[p], []).append(p)
+    layers = dp_t.dp_schedule(parent)
+    assert len(layers) == max(depth)
+    seen = []
+    for i, layer in enumerate(layers):
+        d = max(depth) - i
+        parents = [q for q, _ in layer]
+        assert parents == sorted(parents)
+        assert set(parents) == {parent[p] for p in range(1, P)
+                                if depth[p] == d}
+        for q, kids in layer:
+            assert list(kids) == sorted(children[q], reverse=True)
+            assert all(depth[c] == d for c in kids)
+            seen += kids
+    assert sorted(seen) == list(range(1, P))
+    host, dev, top = dp_t._schedule_table(layers, torch.device("cpu"))
+    assert top == P - 1
+    t = host.tolist()
+    assert torch.equal(host, dev) and host.dtype == torch.int32
+    nl, ng, npart = t[:3]
+    lay, grp = t[3:3 + 4 * nl], t[3 + 4 * nl:3 + 4 * nl + 3 * ng]
+    parts = t[3 + 4 * nl + 3 * ng:]
+    assert (nl, npart, len(parts)) == (len(layers), P - 1, P - 1)
+    decoded = []
+    for i in range(nl):
+        plo, phi, glo, ghi = lay[4 * i:4 * i + 4]
+        groups = tuple((grp[3 * g], tuple(parts[grp[3 * g + 1]:
+                                                 grp[3 * g + 2]]))
+                       for g in range(glo, ghi))
+        assert parts[plo:phi] == [c for _, kids in groups for c in kids]
+        decoded.append(groups)
+    assert tuple(decoded) == layers
+    if maker == "person_like":
+        assert [sum(len(k) for _, k in layer) for layer in layers] == \
+            [1, 1, 1, 1, 1, 2, 2, 2, 2, 3, 5, 4]
+
+
+@pytest.mark.parametrize("maker", ["tiny", "person_like", "face_like"])
+def test_dp_schedule_order_is_the_plain_loop(maker):
+    """The part steps taken in the kernel's order (a depth's x passes,
+    then each group's messages added in its order) give the plain loop's
+    scores and tmp bit for bit: the order the kernel relies on."""
+    comp, pdfs, sizes, _ = _dp_inputs(maker, 22, False)
+    ref = dp_t.dp_min_levels(pdfs, comp, "reference", true_sizes=sizes)
+    P = comp.nparts
+    scores = torch.where(
+        comp.mix_valid[None, :, :, None, None]
+        & dp_t._inbounds(9, 12, sizes)[:, None, None],
+        pdfs.movedim(-1, 1)[:, comp.filterid.long()], dp_t.NEG)
+    tmp = torch.zeros_like(scores)
+    w, anc = comp.defw, comp.anchor
+    for layer in dp_t.dp_schedule(comp.parent_static):
+        for _, kids in layer:
+            for c in kids:
+                tmp[:, c] = dt_t.dt_max_x(scores[:, c], w[c, :, 0],
+                                          w[c, :, 1], anc[c, :, 0])
+        for q, kids in layer:
+            for c in kids:
+                sdt = dt_t.dt_max_y(tmp[:, c], w[c, :, 2], w[c, :, 3],
+                                    anc[c, :, 1])
+                scores[:, q] += (sdt[:, None] + comp.bias[c].T[
+                    None, :, :, None, None]).amax(dim=2)
+    assert torch.equal(scores, ref.scores) and torch.equal(tmp, ref.tmp)
+    assert P > 1
+
+
+def _kernel_args(L=2, P=3, M=4, H=5, W=7):
+    """Arguments check_dp_args accepts: scores contiguous, tmp W-minor."""
+    return dict(
+        scores=torch.zeros((L, P, M, H, W)),
+        tmp=torch.zeros((L, P, M, W, H)).transpose(-1, -2),
+        defw=torch.zeros((P, M, 4)),
+        anchor=torch.zeros((P, M, 2), dtype=torch.int32),
+        bias=torch.zeros((P, M, M)),
+        msg=torch.zeros((L, M, H, W)))
+
+
+REFUSALS = {
+    "scores float64": (dict(scores=torch.zeros((2, 3, 4, 5, 7),
+                                               dtype=torch.float64)),
+                       TypeError, "scores has dtype"),
+    "anchor float32": (dict(anchor=torch.zeros((3, 4, 2))), TypeError,
+                       "anchor has dtype"),
+    "bias shape": (dict(bias=torch.zeros((3, 4, 3))), ValueError,
+                   "bias has shape"),
+    "scores rank": (dict(scores=torch.zeros((2, 3, 4, 5))), ValueError,
+                    "scores has shape"),
+    "msg shape": (dict(msg=torch.zeros((2, 3, 5, 7))), ValueError,
+                  "msg has shape"),
+    "scores not contiguous": (
+        dict(scores=torch.zeros((2, 3, 4, 7, 5)).transpose(-1, -2)),
+        ValueError, "scores is not contiguous"),
+    "tmp H-minor": (dict(tmp=torch.zeros((2, 3, 4, 5, 7))), ValueError,
+                    "W-minor"),
+    "defw on another device": (dict(defw=torch.zeros((3, 4, 4),
+                                                     device="meta")),
+                               ValueError, "defw is on meta"),
+    "17 mixtures": (dict(_M=17), ValueError, "at most 16"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_check_dp_args_refuses(case):
+    """The kernel wrapper's check, once a call: dtype, shape, storage,
+    device and the mixture count; the arguments it is handed otherwise
+    pass."""
+    change, exc, match = REFUSALS[case]
+    dp_t.check_dp_args(**_kernel_args())
+    args = _kernel_args(M=change["_M"]) if "_M" in change else \
+        {**_kernel_args(), **change}
+    with pytest.raises(exc, match=match):
+        dp_t.check_dp_args(**args)
+
+
+def test_dp_refuses_other_devices():
+    """dp_min_levels runs on CUDA (the kernel) or the CPU (the plain
+    chain) and raises for any other device; dp_tree, the kernel's
+    wrapper, takes CUDA tensors only."""
+    comp, pdfs, sizes, _ = _dp_inputs("tiny", 23, False)
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        dp_t.dp_min_levels(pdfs.to("meta"), comp, "reference")
+    a = _kernel_args(P=comp.nparts, M=comp.maxmix)
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        dp_t.dp_tree(a["scores"], a["tmp"], comp,
+                     dp_t.dp_schedule(comp.parent_static))

@@ -80,8 +80,10 @@ def test_pack_model_matches_transfer(maker, seed):
         a, b = getattr(own, f), getattr(carried, f)
         assert a.dtype == b.dtype and torch.equal(a, b), f
     assert len(own.components) == len(carried.components)
-    for ca, cb in zip(own.components, carried.components):
+    for c, (ca, cb) in enumerate(zip(own.components, carried.components)):
         assert ca.aliased == cb.aliased
+        # the host copy of the tree the DP kernel's schedule is built from
+        assert ca.parent_static == cb.parent_static == own.parent_static[c]
         for f in _COMP_ARRAYS:
             a, b = getattr(ca, f), getattr(cb, f)
             assert a.dtype == b.dtype and a.shape == b.shape, f
