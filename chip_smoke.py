@@ -27,8 +27,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      benchmark's width (26 parts x 6 mixtures): the main path's largest
      group at B=8 (L=16, 118x158) and B=1 (L=2) and its smallest, with
      true sizes and part masks masking to NEG, with planted ties, on the
-     filter-keyed DP of shared filter ids, on the face-68 tree and on 12
-     mixtures — rootv, rooti, scores and tmp equal, launches as the
+     filter-keyed DP of shared filter ids, on the face-68 tree, on 12
+     mixtures and on a 68-part view of the face13 configuration at its
+     largest group (one mixture a part, depth 17: 34 launches) — rootv,
+     rooti, scores and tmp equal, launches as the
      design states; Candidates end to end at B=8 and B=1 equal; the
      kernel's time at the largest groups with the L2 warm and flushed,
      beside its bound and the plain chain's time;
@@ -103,6 +105,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      group and component), shapes and order, kernel walk == plain walk
      end to end (phase 5's twin), card vs CPU at 120x160 under the
      cross-engine contract, and phase 6's times;
+ 10b. the face13 configuration whole (13 views of 68 and 39 parts, one
+     mixture a part, 710 filters) on the same frames: view passes, walk
+     and DP launches a dispatch (one walk and 2 x depth DP launches a dp
+     group and view), the 39-part views' rows padded, and its Candidates
+     bit for bit those of the plain DP chain with the plain walk;
  11. parallel/ at world size 1, person-26 at 640x480: BatchDetector on a
      (1, 1) mesh (B=8), ScaleShardedDetector on a (1, 1) scale mesh (one
      frame) and PipelinedDetector with front = back = cuda:0 (a stream
@@ -129,6 +136,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -138,6 +146,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
+ROOT = Path(__file__).resolve().parent
 IMG = (480, 640)
 BATCH = 8
 K = 64
@@ -545,6 +554,56 @@ def person26():
     return synthetic.person_like(nmixtures=6, root_nmixtures=6)
 
 
+def face13_config() -> dict:
+    with open(ROOT / "bench_port" / "configs" / "face13.json") as f:
+        return json.load(f)
+
+
+def face13_view(nparts: int = 68, view=None, seed: int = 13):
+    """A view of Zhu & Ramanan's 13-view face model as a one-component
+    model: the tree of bench_port/configs/face13.json's first view of
+    nparts parts (68: the views from -45 to +45 degrees; depth 17), or
+    of the given entry of its components, one mixture a part, 5x5x32
+    filters, sbin 4, interval 5."""
+    from partsbaseddetector_tpu_torch.models import synthetic
+    cfg = face13_config()
+    if view is None:
+        view = next(c for c in cfg["components"] if c["nparts"] == nparts)
+    return synthetic.make_model(
+        name="face13-view", nparts=view["nparts"], nmixtures=1,
+        root_nmixtures=1, parent=view["parent"],
+        filter_size=cfg["filter_size"], flen=cfg["flen"],
+        norient=cfg["norient"], binsize=cfg["binsize"],
+        interval=cfg["interval"], seed=seed)
+
+
+def face13_model():
+    """The whole face13 configuration as one model: its 13 views (68 and
+    39 parts) as components, each with filters, deformations and biases
+    of its own (710 filters), seeded view by view."""
+    import dataclasses
+    from partsbaseddetector_tpu_torch.models.schema import (ComponentSpec,
+                                                            PartSpec)
+    views = [face13_view(view=v, seed=13 + i)
+             for i, v in enumerate(face13_config()["components"])]
+    filters, defw, anchors, biasw, comps = [], [], [], [], []
+    for m in views:
+        f, d, b = len(filters), len(defw), len(biasw)
+        comps.append(ComponentSpec(parts=[PartSpec(
+            parentid=p.parentid, filterid=[i + f for i in p.filterid],
+            biasid=[i + b for i in p.biasid], defid=[i + d for i in p.defid])
+            for p in m.components[0].parts]))
+        filters += m.filters
+        defw += m.defw
+        anchors += m.anchors
+        biasw += list(m.biasw)
+    model = dataclasses.replace(views[0], name="face13", filters=filters,
+                                defw=defw, anchors=anchors,
+                                biasw=np.asarray(biasw), components=comps)
+    model.validate()
+    return model
+
+
 def dp_inputs_from_path(det, frames, group_index: int):
     """One dp group of det's main path on these frames, from the port's
     own stages 1-2: (pdfs (B*Lg, gfh, gfw, F), true sizes (B*Lg, 2)),
@@ -657,6 +716,7 @@ def phase_dp_kernel(frames) -> dict:
 
     apdfs = torch.randn((L, H, W, alias.filterid.max().item() + 1),
                         generator=g, device="cuda")
+    f13 = Detector(face13_view(), k_per_level=K, device="cuda")
     cases = {
         "path-largest-B8": dp_case(comp, *big8),
         "path-largest-B1": dp_case(comp, *big1),
@@ -672,6 +732,10 @@ def phase_dp_kernel(frames) -> dict:
         "mix12-118x158": dp_case(m12.components[0],
                                  rand_pdfs(m12, 2, 118, 158, 15),
                                  sizes_of(2, 118, 158)),
+        # the face13 cell's largest group: one mixture, depth 17
+        "face13-68-largest-B8": dp_case(f13.packed.components[0],
+                                        *dp_inputs_from_path(f13, frames,
+                                                             0)),
     }
     for name, c in cases.items():
         args = (c["pdfs"], c["comp"], "reference", c["masks"], c["sizes"])
@@ -2165,6 +2229,62 @@ def phase_face68(frames, smi: str) -> int:
     return n
 
 
+def phase_face13(frames) -> int:
+    """10b. The face13 configuration whole (bench_port/configs/face13.json:
+    13 views of 68 and 39 parts, one mixture a part, 710 filters,
+    interval 5, seeded weights), thresh 0.0, on the main path's 8 frames
+    (640x480, B=8, K=64): the launches of both kernels and the view
+    passes counted by the port's tracer (one walk and 2 x depth DP
+    launches a dp group and view), the Candidates' shapes and order with
+    the rows of the 39-part views padded, and the Candidates bit for bit
+    those of the plain DP chain with the plain walk.  Returns the walk's
+    launches a dispatch."""
+    from partsbaseddetector_tpu_torch.infer.detector import (Detector,
+                                                             _dp_groups)
+    from partsbaseddetector_tpu_torch.utils import profiling
+    model = face13_model()
+    model.thresh = 0.0
+    det = Detector(model, k_per_level=K, compose="reference",
+                   conv_engine="spatial", device="cuda")
+    plan = det.plan_for(IMG)
+    ngroups = sum(len(_dp_groups(b, det.dp_split)) for b in plan.buckets)
+    nviews = len(det.packed.components)
+    log(f"face13: {[c.nparts for c in model.components]} parts a view, "
+        f"{model.nfilters} filters, {len(plan.levels)} levels in "
+        f"{len(plan.buckets)} buckets, {ngroups} dp groups")
+    det.detect_batch_raw(frames)            # warm
+    cands, n = counted(lambda: det.detect_batch_raw(frames))
+    views = profiling.TRACER.counters.get("views", 0)
+    log(f"face13, B={BATCH}: view passes {views} (expected "
+        f"{ngroups * nviews})")
+    if views != ngroups * nviews:
+        raise RuntimeError(f"face13: {views} view passes, expected "
+                           f"{ngroups * nviews}")
+    expect_launches(f"face13, B={BATCH} ({ngroups} dp groups x {nviews} "
+                    f"views)", n, expected_launches(det, IMG),
+                    expected_dp_launches(det, IMG))
+    check_candidates(cands, len(plan.levels) * nviews,
+                     det.packed.maxparts)
+    small = [c for c, m in enumerate(model.components) if m.nparts < 68]
+    rows = (cands.loc[..., 0] >= 0).sum(-1)[cands.valid]
+    own = torch.tensor([m.nparts for m in model.components],
+                       device="cuda")[cands.component[cands.valid].long()]
+    if not torch.equal(rows, own):
+        raise RuntimeError("face13: part rows held != the view's parts")
+    log(f"face13: views {small} padded to {det.packed.maxparts} rows; "
+        f"valid candidates per frame (thresh 0.0): "
+        f"{cands.valid.sum(1).tolist()}")
+    plain = Detector(model, k_per_level=K, compose="reference",
+                     conv_engine="spatial", device="cuda", walk_impl="torch")
+    equal_candidates(cands, with_plain_dp(
+        lambda: plain.detect_batch_raw(frames)),
+        "face13: DP and walk kernels vs plain DP and plain walk, end to end")
+    del plain
+    report(f"face13, B={BATCH}, detect_batch_raw",
+           lambda: det.detect_batch_raw(frames), BATCH)
+    return n
+
+
 # ---------------------------------------------------------------- phase 11
 def phase_parallel(model, frames, cands) -> dict:
     """11. parallel/ at world size 1 on person-26 (thresh 0.0),
@@ -2323,6 +2443,7 @@ def main() -> int:
     paths.update(phase_serving(smi))
     paths.update(phase_train(smi))
     paths["face68"] = phase_face68(frames, smi)
+    paths["face13"] = phase_face13(frames)
     paths.update(phase_parallel(model, frames, cands))
     paths.update(phase_stream_mesh(model, frames))
     log(json.dumps({"kernels": [{

@@ -58,17 +58,30 @@ class Detection:
     parts: np.ndarray      # (P, 4) float boxes x1, y1, x2, y2
     locations: np.ndarray  # (P, 3) int x, y, mixture (feature-grid coords)
 
+    def own(self) -> "Detection":
+        """The detection cut to its component's parts.  P is the model's
+        most parts: a component of fewer parts pads the rows past them
+        with locations -1 and boxes 0, and every consumer that walks the
+        rows takes them from here."""
+        keep = self.locations[:, 0] >= 0
+        if keep.all():
+            return self
+        return dataclasses.replace(self, parts=self.parts[keep],
+                                   locations=self.locations[keep])
+
     def bounding_box(self) -> np.ndarray:
         """Hull over part boxes (reference: include/Candidate.hpp:105-111).
         """
-        return np.array([self.parts[:, 0].min(), self.parts[:, 1].min(),
-                         self.parts[:, 2].max(), self.parts[:, 3].max()])
+        parts = self.own().parts
+        return np.array([parts[:, 0].min(), parts[:, 1].min(),
+                         parts[:, 2].max(), parts[:, 3].max()])
 
     def bounding_box_norm(self) -> np.ndarray:
         """mean +- 1.5 sigma box over part centroids
         (reference: include/Candidate.hpp:117-130)."""
-        cx = (self.parts[:, 0] + self.parts[:, 2]) / 2.0
-        cy = (self.parts[:, 1] + self.parts[:, 3]) / 2.0
+        parts = self.own().parts
+        cx = (parts[:, 0] + parts[:, 2]) / 2.0
+        cy = (parts[:, 1] + parts[:, 3]) / 2.0
         return np.array([cx.mean() - 1.5 * cx.std(),
                          cy.mean() - 1.5 * cy.std(),
                          cx.mean() + 1.5 * cx.std(),
@@ -265,32 +278,38 @@ def dp_backtrack_bucket(bucket, pdfs, tsizes, scales,
         levels = (torch.arange(lo, hi, dtype=torch.int32, device=dev)
                   + bucket.levels[0].index).repeat(B)
         for c, comp in enumerate(packed.components):
-            # the tracer's dp spans carry the group: its bucket, by the
-            # bucket's first pyramid level, its levels lo..hi-1 in the
-            # bucket and the component
-            with stage("dp", {"bucket": bucket.levels[0].index, "lo": lo,
-                              "hi": hi, "component": c}) \
-                    if stage is profiling.stage else stage("dp"):
-                res = dp_min_levels(gpdfs, comp, compose, gmask,
-                                    true_sizes=gsizes)
-            with stage("seeds+sort"):
-                topv, valid, xs, ys, mv = argmax_ops._root_seeds(
-                    res.rootv, res.rooti, packed.thresh, k_per_level,
-                    gsizes)
-            with stage("walk"):
-                X, Y, Mm = walk(
-                    res.scores, res.tmp, xs, ys, mv, comp.defw,
-                    comp.anchor.to(torch.float32), comp.bias,
-                    # on the host: the walk reads the tree without a sync
-                    torch.tensor(packed.parent_static[c],
-                                 dtype=torch.int32),
-                    compose)
-            with stage("seeds+sort"):
-                cands = argmax_ops._walked_candidates(
-                    X, Y, Mm, topv, valid, comp, gscales, k_per_level, c,
-                    levels)
-                out.append(cands.map(
-                    lambda x: x.unflatten(0, (B, Lg * k_per_level))))
+            # a view (component) runs its DP and walk over its own parts;
+            # its candidates are padded to the model's most parts
+            with profiling.span("view", {"component": c,
+                                         "nparts": comp.nparts}):
+                profiling.count("views")
+                # the tracer's dp spans carry the group: its bucket, by
+                # the bucket's first pyramid level, its levels lo..hi-1
+                # in the bucket and the component
+                with stage("dp", {"bucket": bucket.levels[0].index,
+                                  "lo": lo, "hi": hi, "component": c}) \
+                        if stage is profiling.stage else stage("dp"):
+                    res = dp_min_levels(gpdfs, comp, compose, gmask,
+                                        true_sizes=gsizes)
+                with stage("seeds+sort"):
+                    topv, valid, xs, ys, mv = argmax_ops._root_seeds(
+                        res.rootv, res.rooti, packed.thresh, k_per_level,
+                        gsizes)
+                with stage("walk"):
+                    X, Y, Mm = walk(
+                        res.scores, res.tmp, xs, ys, mv, comp.defw,
+                        comp.anchor.to(torch.float32), comp.bias,
+                        # on the host: the walk reads the tree without a
+                        # sync
+                        torch.tensor(packed.parent_static[c],
+                                     dtype=torch.int32),
+                        compose)
+                with stage("seeds+sort"):
+                    cands = argmax_ops._walked_candidates(
+                        X, Y, Mm, topv, valid, comp, gscales, k_per_level,
+                        c, levels, packed.maxparts)
+                    out.append(cands.map(
+                        lambda x: x.unflatten(0, (B, Lg * k_per_level))))
     return out
 
 
@@ -545,14 +564,18 @@ class Detector:
             boxes = cands.boxes.cpu().numpy()
             locs = cands.loc.cpu().numpy()
             out: List[Detection] = []
-            for i in range(len(score)):
-                if not valid[i]:
-                    continue
-                out.append(Detection(score=float(score[i]),
-                                     component=int(comp[i]),
-                                     level=int(level[i]),
-                                     parts=boxes[i], locations=locs[i]))
-                if max_detections is not None and \
-                        len(out) >= max_detections:
-                    break
+            # a Detection is an object the cyclic collector tracks: built
+            # by the thousand, they would start a full collection of the
+            # whole heap every few frames
+            with profiling.gc_held():
+                for i in range(len(score)):
+                    if not valid[i]:
+                        continue
+                    out.append(Detection(score=float(score[i]),
+                                         component=int(comp[i]),
+                                         level=int(level[i]),
+                                         parts=boxes[i], locations=locs[i]))
+                    if max_detections is not None and \
+                            len(out) >= max_detections:
+                        break
             return out

@@ -93,14 +93,15 @@ def _dp_multires(per_bucket, o: int, L: int, comp: PackedComponent,
 
 def _walk_levels(rootv, rooti, scores, tmps, comp: PackedComponent,
                  pscales, parents, thresh, true_sizes, part_scales,
-                 k: int, component_index: int, levels
+                 k: int, component_index: int, width: int, levels
                  ) -> argmax_ops.Candidates:
     """Backtracking for all L root levels of a bucket at once: top-k
     roots per level (ops/argmax._root_seeds, the JAX package's lax.top_k
     order), then the strided K-point argmax recomputation down the tree
     (the JAX package's _walk_slot, batched over levels).  part_scales:
-    (L, P) pixels per cell of each part's own slot.  Returns a flat
-    Candidates of capacity L*k."""
+    (L, P) pixels per cell of each part's own slot; width: the model's
+    most parts, to which the candidates' part rows are padded.  Returns
+    a flat Candidates of capacity L*k."""
     L = rootv.shape[0]
     P = comp.nparts
     topv, valid, xs, ys, mv = argmax_ops._root_seeds(rootv, rooti, thresh,
@@ -140,7 +141,7 @@ def _walk_levels(rootv, rooti, scores, tmps, comp: PackedComponent,
     X, Y, Mm = (torch.stack(v, dim=1) for v in (xv, yv, mvv))  # (L, P, K)
     return argmax_ops._walked_candidates(X, Y, Mm, topv, valid, comp,
                                          part_scales, k, component_index,
-                                         levels)
+                                         levels, width)
 
 
 def _multires_stage12(image: torch.Tensor, packed: PackedModel,
@@ -195,7 +196,8 @@ def _multires_walks(per_bucket, packed: PackedModel, k_per_level: int,
                                 for p in range(comp.nparts)], dim=1)
             out.append((c, _walk_levels(
                 rootv, rooti, scores, tmps, comp, pscales, parents,
-                packed.thresh, tsizes_o, pscl, k_per_level, c, levels)))
+                packed.thresh, tsizes_o, pscl, k_per_level, c,
+                packed.maxparts, levels)))
     return out
 
 

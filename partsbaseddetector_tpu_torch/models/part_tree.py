@@ -97,6 +97,13 @@ class PackedModel:
         """Host copies of the components' trees, for the tree walks."""
         return tuple(c.parent_static for c in self.components)
 
+    @property
+    def maxparts(self) -> int:
+        """The most parts of a component: the part rows of every
+        candidate, a smaller component's padded to it
+        (ops/argmax._walked_candidates)."""
+        return max(len(p) for p in self.parent_static)
+
 
 def message_fids(filterid, parent, nmix) -> Tuple[Tuple[int, ...], ...]:
     """PackedComponent.message_fids from the (P, M) filter ids, (P,)

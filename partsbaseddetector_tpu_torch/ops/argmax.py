@@ -20,14 +20,16 @@ with xsize == ysize == filter rows (include/Parts.hpp:185-187).
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from partsbaseddetector_tpu_torch.models.part_tree import PackedComponent
 from partsbaseddetector_tpu_torch.ops.common import cv_round
 from partsbaseddetector_tpu_torch.ops.dp import DPResult
 from partsbaseddetector_tpu_torch.ops.walk import walk_tree, walk_tree_plain
+from partsbaseddetector_tpu_torch.utils import profiling
 
 _FIELDS = ("score", "valid", "component", "level", "boxes", "loc")
 
@@ -39,7 +41,11 @@ WALKS = {"cuda": walk_tree, "torch": walk_tree_plain}
 @dataclasses.dataclass(frozen=True)
 class Candidates:
     """A fixed-capacity batch of detection candidates (SoA); every field
-    shares the leading (..., N) axes."""
+    shares the leading (..., N) axes.  P is the most parts of a
+    component (PackedModel.maxparts): a component of fewer parts fills
+    its rows past them with padding, loc -1 and boxes 0, and sets
+    ``padded``, a host flag that tells the part-walking consumers
+    (ops/nms.py) to skip such rows."""
 
     score: torch.Tensor      # (..., N) f32 root confidence
     valid: torch.Tensor      # (..., N) bool (score > thresh, in-bounds)
@@ -47,6 +53,7 @@ class Candidates:
     level: torch.Tensor      # (..., N) int32 pyramid level index
     boxes: torch.Tensor      # (..., N, P, 4) f32: x1, y1, x2, y2 (pixels)
     loc: torch.Tensor        # (..., N, P, 3) int32: x, y, mixture (cells)
+    padded: bool = False     # some candidate has padded part rows
 
     @property
     def capacity(self) -> int:
@@ -57,7 +64,13 @@ class Candidates:
 
     def map(self, fn) -> "Candidates":
         """Apply fn to every field."""
-        return Candidates(**{f: fn(getattr(self, f)) for f in _FIELDS})
+        return Candidates(**{f: fn(getattr(self, f)) for f in _FIELDS},
+                          padded=self.padded)
+
+    def own_rows(self) -> Optional[torch.Tensor]:
+        """(..., N, P) bool, the rows that hold a part and not padding;
+        None when every row does (not ``padded``)."""
+        return self.loc[..., 0] >= 0 if self.padded else None
 
 
 def _root_seeds(rootv: torch.Tensor, rooti: torch.Tensor, thresh, k: int,
@@ -95,12 +108,16 @@ def _root_seeds(rootv: torch.Tensor, rooti: torch.Tensor, thresh, k: int,
 
 def _walked_candidates(X, Y, Mm, topv, valid, comp: PackedComponent,
                        scales, k: int, component_index: int,
-                       levels) -> Candidates:
+                       levels, width: int) -> Candidates:
     """Assemble the flat Candidates from walked positions.
     X/Y/Mm: (L, P, K); topv/valid: (L, K); levels: (L,); scales: pixels
-    per cell, (L,) or per part (L, P) (multi-resolution models).
-    Returns capacity L*k."""
+    per cell, (L,) or per part (L, P) (multi-resolution models); width:
+    the part rows of the model's candidates (PackedModel.maxparts), the
+    rows past P padded with loc -1 and boxes 0 and counted in the
+    tracer's ``parts.padded``.  Returns capacity L*k."""
     L, P, K = X.shape
+    pad = width - P
+    profiling.count("parts.padded", L * K * pad)
     X = X.transpose(1, 2)               # (L, K, P)
     Y = Y.transpose(1, 2)
     Mm = Mm.transpose(1, 2)
@@ -112,6 +129,11 @@ def _walked_candidates(X, Y, Mm, topv, valid, comp: PackedComponent,
     y1 = cv_round((Y - 1) * scale)
     ext = cv_round(sizes * scale)
     boxes = torch.stack([x1, y1, x1 + ext - 1, y1 + ext - 1], dim=-1)
+    loc = torch.stack([X, Y, Mm], dim=-1).to(torch.int32)
+    boxes = boxes.to(torch.float32)
+    if pad:
+        loc = F.pad(loc, (0, 0, 0, pad), value=-1)
+        boxes = F.pad(boxes, (0, 0, 0, pad))
     levels = torch.as_tensor(levels, dtype=torch.int32, device=X.device)
     out = Candidates(
         score=topv.to(torch.float32),
@@ -119,8 +141,7 @@ def _walked_candidates(X, Y, Mm, topv, valid, comp: PackedComponent,
         component=torch.full((L, K), component_index, dtype=torch.int32,
                              device=X.device),
         level=levels[:, None].expand(L, K),
-        boxes=boxes.to(torch.float32),
-        loc=torch.stack([X, Y, Mm], dim=-1).to(torch.int32))
+        boxes=boxes, loc=loc, padded=pad > 0)
     return out.map(lambda x: x.reshape((L * k,) + x.shape[2:]))
 
 
@@ -152,7 +173,7 @@ def backtrack_levels(res: DPResult, comp: PackedComponent,
         comp.anchor.to(torch.float32), comp.bias,
         torch.tensor(parent_static, dtype=torch.int32), compose)
     return _walked_candidates(X, Y, Mm, topv, valid, comp, scales, k,
-                              component_index, levels)
+                              component_index, levels, comp.nparts)
 
 
 def backtrack(res: DPResult, comp: PackedComponent,
@@ -176,14 +197,15 @@ def concat_candidates(cands: Sequence[Candidates]) -> Candidates:
     return Candidates(**{
         f: torch.cat([getattr(c, f) for c in cands],
                      dim=getattr(cands[0], "score").ndim - 1)
-        for f in _FIELDS})
+        for f in _FIELDS}, padded=any(c.padded for c in cands))
 
 
 def stack_candidates(outs: Sequence[Candidates]) -> Candidates:
     """Per-frame Candidates stacked into one with a leading (B, ...)
     axis, field by field."""
     return Candidates(**{f: torch.stack([getattr(o, f) for o in outs])
-                         for f in _FIELDS})
+                         for f in _FIELDS},
+                      padded=any(o.padded for o in outs))
 
 
 def sort_candidates(c: Candidates) -> Candidates:

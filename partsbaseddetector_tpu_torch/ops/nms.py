@@ -24,6 +24,8 @@ stays O(K^2) bools rather than JAX's fused (K, K, P+1) floats.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
@@ -55,17 +57,22 @@ def grid_nms(src: torch.Tensor, sz: int, mask=None) -> torch.Tensor:
     return is_max & (cnt == 1)
 
 
-def _bbox_of(boxes: torch.Tensor) -> torch.Tensor:
+def _bbox_of(boxes: torch.Tensor, own=None) -> torch.Tensor:
     """(.., P, 4) part boxes -> (.., 4) covering box (hull)
-    (reference: include/Candidate.hpp:105-111)."""
-    return torch.stack([boxes[..., 0].amin(-1), boxes[..., 1].amin(-1),
-                        boxes[..., 2].amax(-1), boxes[..., 3].amax(-1)],
+    (reference: include/Candidate.hpp:105-111); own: optional (.., P)
+    bool, the rows that hold a part (Candidates.own_rows), the others
+    left out."""
+    lo = hi = boxes
+    if own is not None:
+        lo = torch.where(own[..., None], boxes, torch.inf)
+        hi = torch.where(own[..., None], boxes, -torch.inf)
+    return torch.stack([lo[..., 0].amin(-1), lo[..., 1].amin(-1),
+                        hi[..., 2].amax(-1), hi[..., 3].amax(-1)],
                        dim=-1)
 
 
 def _with_valid(c: Candidates, valid: torch.Tensor) -> Candidates:
-    return Candidates(score=c.score, valid=valid, component=c.component,
-                      level=c.level, boxes=c.boxes, loc=c.loc)
+    return dataclasses.replace(c, valid=valid)
 
 
 def _first_true(flags: torch.Tensor, start: int) -> int:
@@ -93,7 +100,7 @@ def paint_nms(cands: Candidates, imsize, overlap: float = 0.0
     the scratch is repainted and integrated once per kept box."""
     H, W = (int(v) for v in imsize)
     dev = cands.score.device
-    bb = _bbox_of(cands.boxes)                         # (K, 4)
+    bb = _bbox_of(cands.boxes, cands.own_rows())       # (K, 4)
     # clip to the image (reference: box & bounds); cv::Rect from two
     # points is exclusive at the bottom right: the region is
     # [x1, x2) x [y1, y2)
@@ -127,10 +134,13 @@ def paint_nms(cands: Candidates, imsize, overlap: float = 0.0
     return _with_valid(cands, keep)
 
 
-def _overlaps_above(boxes: torch.Tensor, overlap: float) -> torch.Tensor:
+def _overlaps_above(boxes: torch.Tensor, overlap: float, own=None
+                    ) -> torch.Tensor:
     """(K, K) bool: o[i, j] > overlap, where o[i, j] is the largest over
     box columns of intersection(i, j) / area(i) (nms.m:50-68), computed
-    PART_NMS_ROWS rows at a time."""
+    PART_NMS_ROWS rows at a time; own: optional (K, P+1) bool, the
+    columns of each candidate that hold a box, a column counting only
+    where both hold one."""
     x1, y1, x2, y2 = boxes.unbind(-1)                   # (K, P+1)
     area = (x2 - x1 + 1) * (y2 - y1 + 1)
     K = boxes.shape[0]
@@ -141,8 +151,10 @@ def _overlaps_above(boxes: torch.Tensor, overlap: float) -> torch.Tensor:
              - torch.maximum(x1[lo:hi, None], x1[None]) + 1).clamp_(min=0)
         h = (torch.minimum(y2[lo:hi, None], y2[None])
              - torch.maximum(y1[lo:hi, None], y1[None]) + 1).clamp_(min=0)
-        o = (w * h / area[lo:hi, None]).amax(-1)       # (rows, K)
-        out[lo:hi] = o > overlap
+        o = w * h / area[lo:hi, None]                  # (rows, K, P+1)
+        if own is not None:
+            o = o.masked_fill_(~(own[lo:hi, None] & own[None]), -torch.inf)
+        out[lo:hi] = o.amax(-1) > overlap
     return out
 
 
@@ -157,12 +169,15 @@ def part_nms(cands: Candidates, overlap: float = 0.5) -> Candidates:
 
     keep[i] is final once every candidate before i is decided, so the
     loop jumps from one kept candidate to the next."""
-    boxes = torch.cat([cands.boxes, _bbox_of(cands.boxes)[:, None, :]],
+    own = cands.own_rows()
+    boxes = torch.cat([cands.boxes, _bbox_of(cands.boxes, own)[:, None, :]],
                       dim=1)                            # (K, P+1, 4)
+    if own is not None:
+        own = F.pad(own, (0, 1), value=True)            # the hull's column
     K = cands.capacity
     later = torch.ones((K, K), dtype=torch.bool,
                        device=boxes.device).triu_(1)    # j > i
-    sup = _overlaps_above(boxes, overlap) & later
+    sup = _overlaps_above(boxes, overlap, own) & later
     keep = cands.valid.clone()
     start = 0
     while start < K:

@@ -26,7 +26,6 @@ partsbaseddetector_tpu/parallel/pipeline.py:98-102.)
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 from collections import deque
 from typing import Optional
 
@@ -143,8 +142,8 @@ class PipelinedDetector:
         if done is not None:
             cur = torch.cuda.current_stream(self.back)
             cur.wait_event(done)
-            for f in dataclasses.fields(cands):
-                getattr(cands, f.name).record_stream(cur)
+            for name in argmax_ops._FIELDS:     # the tensor fields
+                getattr(cands, name).record_stream(cur)
         return cands
 
     def detect_raw(self, image, depth=None) -> argmax_ops.Candidates:

@@ -72,7 +72,7 @@ def _pad_levels(t: torch.Tensor, n: int, value) -> torch.Tensor:
 
 def _invalid_candidates(n: int, nparts: int, device
                         ) -> argmax_ops.Candidates:
-    """n invalid candidates of nparts parts: the padding of a rank's
+    """n invalid candidates of nparts part rows: the padding of a rank's
     segments before the scale all-gather, dropped after it."""
     def zeros(*shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -189,8 +189,7 @@ class ScaleShardedDetector:
         for c, cands in _multires_walks(per_bucket, packed,
                                         self.k_per_level, masks, slot0=a):
             have = 0 if cands is None else cands.capacity
-            pad = _invalid_candidates(n - have,
-                                      packed.components[c].nparts, dev)
+            pad = _invalid_candidates(n - have, packed.maxparts, dev)
             segments.append(pad if cands is None else
                             argmax_ops.concat_candidates([cands, pad]))
         return argmax_ops.concat_candidates(segments)

@@ -46,10 +46,12 @@ def bounding_box_3d(detection, imsize: Tuple[int, int],
                     depth: np.ndarray) -> Rect3:
     """3-D box of a detection: 2-D hull + z-extent found by walking a
     smoothed depth-derivative from the median depth
-    (reference: include/Candidate.hpp:140-216)."""
+    (reference: include/Candidate.hpp:140-216), over its component's own
+    parts (Detection.own)."""
     H, W = imsize
     dh, dw = depth.shape
     sx, sy = dw / W, dh / H
+    detection = detection.own()
     bb = detection.bounding_box()
 
     # gather valid depth points under all part boxes + the norm box
@@ -105,7 +107,8 @@ def compute_bounding_boxes(detections: Sequence, imsize: Tuple[int, int],
                            ) -> Tuple[List[Rect3], List[np.ndarray]]:
     """Per candidate: 3-D bounding box (corners back-projected at the
     z-extent) and per-part centers back-projected at the part's average
-    depth (reference: include/PointCloudClusterer.hpp:52-154)."""
+    depth (reference: include/PointCloudClusterer.hpp:52-154), one a
+    part of its component (Detection.own)."""
     H, W = imsize
     boxes3d: List[Rect3] = []
     centers: List[np.ndarray] = []
@@ -116,7 +119,7 @@ def compute_bounding_boxes(detections: Sequence, imsize: Tuple[int, int],
             centers.append(np.zeros((0, 3)))
             continue
         pc = []
-        for box in det.parts:
+        for box in det.own().parts:
             b = np.clip(box, [0, 0, 0, 0], [W, H, W, H])
             x1, y1, x2, y2 = (int(v) for v in b)
             region = depth[y1:max(y2, y1 + 1), x1:max(x2, x1 + 1)]

@@ -23,9 +23,11 @@ Here the port has one tracer and the device views it is measured by:
 
   Spans: ``detect.call`` (a detector call; ``upload``, the frames',
   depths' and masks' copy to the device; ``prune``, the depth pruning;
-  the stages ``ladder+hog``, ``conv``, ``dp`` (attributes bucket, its
-  first pyramid level, the group's levels lo..hi-1 in it and component),
-  ``seeds+sort`` and ``walk``), ``fetch``
+  the stages ``ladder+hog`` and ``conv``; ``view`` (attributes
+  component and nparts), one a dp group and component, around that
+  pass's stages ``dp`` (attributes bucket, its first pyramid level, the
+  group's levels lo..hi-1 in it and component), ``seeds+sort`` and
+  ``walk``; the final ``seeds+sort``), ``fetch``
   (Detector.candidates_to_detections), and on the serving path
   (infer/stream.py) ``serve.frame`` (attributes seq, the frame's number
   in the stream, and frame, its index in the batch), ``serve.wait``
@@ -35,9 +37,12 @@ Here the port has one tracer and the device views it is measured by:
   stall the launch queue: paint/part NMS's two reads a step, the six
   fields a fetch reads, the serving wait, the walk's read of a
   ``parent`` given on the device), ``walk.launches`` (launches of
-  the walk kernel) and ``dp.launches`` (launches of the DP kernel,
+  the walk kernel), ``dp.launches`` (launches of the DP kernel,
   csrc/dp.cu: two a depth of the tree a (group, component) call, two a
-  part on the filter-keyed DP of shared filter ids).
+  part on the filter-keyed DP of shared filter ids), ``views`` (one a
+  (dp group, component) pass) and ``parts.padded`` (the part rows a
+  pass pads: its candidates times the model's most parts less the
+  component's, ops/argmax._walked_candidates).
 * ``CudaStageTimer``: CUDA events at the detector's ``stage=`` hook,
   device ms per stage of one call;
 * ``device_trace`` and ``device_busy``: a torch.profiler trace of a
@@ -52,6 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import os
 import tempfile
@@ -115,7 +121,15 @@ class Span:
 
 
 class _Open:
-    """The context of one span of a StageTimer."""
+    """The context of one span of a StageTimer.
+
+    Under a torch.profiler the span's stamps are taken right inside its
+    record_function range, with every allocation of the span's own
+    bookkeeping before the range opens or after it closes, and Python's
+    cyclic garbage collector held off between a range's edge and the
+    stamp beside it: a collection that an allocation starts there (tens
+    of milliseconds on a large heap) would put the two clocks' records
+    of one edge that far apart."""
 
     __slots__ = ("timer", "name", "prefix", "attrs", "span", "mark")
 
@@ -125,18 +139,40 @@ class _Open:
         self.mark = None
 
     def __enter__(self) -> Span:
+        s = self.span = self.timer._open(self.name, self.attrs)
         if _autograd_profiler._is_profiler_enabled:
             self.mark = torch.profiler.record_function(self.prefix
                                                        + self.name)
-            self.mark.__enter__()
-        self.span = self.timer._open(self.name, self.attrs)
-        return self.span
+            with gc_held():
+                self.mark.__enter__()
+                s.start_ns = time.time_ns()
+        else:
+            s.start_ns = time.time_ns()
+        return s
 
     def __exit__(self, *exc):
-        self.timer._close(self.span)
-        if self.mark is not None:
-            self.mark.__exit__(*exc)
+        s = self.span
+        if self.mark is None:
+            s.end_ns = time.time_ns()
+        else:
+            with gc_held():
+                s.end_ns = time.time_ns()
+                self.mark.__exit__(*exc)
+        self.timer._close(s)
         return False
+
+
+@contextlib.contextmanager
+def gc_held():
+    """Python's cyclic garbage collector off for the block, if it was
+    on."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 class StageTimer:
@@ -187,11 +223,10 @@ class StageTimer:
         else:
             self.dropped += 1
         stack.append(s)
-        s.start_ns = time.time_ns()
         return s
 
     def _close(self, s: Span) -> None:
-        s.end_ns = time.time_ns()
+        """Book a span whose end _Open has stamped."""
         self._local.stack.pop()
         dt = (s.end_ns - s.start_ns) * 1e-9
         st = self.stats[s.name]

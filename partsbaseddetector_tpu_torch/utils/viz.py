@@ -51,6 +51,7 @@ def draw_detections(image: np.ndarray, detections: Sequence,
     if max_candidates is not None:
         dets = dets[:max_candidates]
     for det in dets:
+        det = det.own()
         colors = part_colors(len(det.parts))
         for p, box in enumerate(det.parts):
             x1, y1, x2, y2 = (float(v) for v in box)
@@ -90,6 +91,7 @@ def draw_skeleton(image: np.ndarray, detections: Sequence,
     pil = Image.fromarray(img)
     draw = ImageDraw.Draw(pil)
     for det in detections:
+        det = det.own()
         P = len(det.parts)
         colors = part_colors(P)
         cx = (det.parts[:, 0] + det.parts[:, 2]) / 2.0

@@ -120,6 +120,36 @@ def test_detect_returns_host_detections():
     assert len(det.detect(im)) == det.detect_raw(im).count()
 
 
+def test_fetch_builds_detections_with_the_collector_off(monkeypatch):
+    """The fetch's Detections are built with the cyclic collector held
+    off, and it is on again after; the detections are those built with it
+    on."""
+    import gc
+
+    import partsbaseddetector_tpu_torch.infer.detector as detector
+    m = syn_t.tiny(seed=1)
+    m.thresh = -1e9
+    cands = Detector(m, k_per_level=4, device="cpu").detect_raw(
+        np.random.default_rng(2).random((48, 56)) * 255)
+    want = Detector.candidates_to_detections(cands)
+    states = []
+
+    def built(**kw):
+        states.append(gc.isenabled())
+        return Detection(**kw)
+
+    monkeypatch.setattr(detector, "Detection", built)
+    assert gc.isenabled()
+    got = Detector.candidates_to_detections(cands)
+    assert gc.isenabled()
+    assert states == [False] * cands.count() and len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a.score, a.component, a.level) == (b.score, b.component,
+                                                   b.level)
+        np.testing.assert_array_equal(a.parts, b.parts)
+        np.testing.assert_array_equal(a.locations, b.locations)
+
+
 def test_out_of_scope_options_raise():
     """What the port leaves to other entry points or removed (ROADMAP.md
     queue 1 item 20) raises; the options it carries are accepted."""

@@ -62,19 +62,44 @@ def _names(spans):
     return out
 
 
+def _subtree(spans, top):
+    """top and every span below it (a parent is stored before its
+    children)."""
+    inside, out = {top.index}, [top]
+    for s in spans:
+        if s.parent in inside:
+            inside.add(s.index)
+            out.append(s)
+    return out
+
+
 def _check_detect(det, spans, call):
-    """One detect.call and its children: the upload, the five stages as
-    many times as the plan asks, the dp spans with their group."""
+    """One detect.call and its spans: the upload, the five stages as
+    many times as the plan asks, a view span a dp group and component
+    (attributes component and nparts) around that pass's dp, walk and
+    two seeds+sort, the dp spans with their group."""
     buckets, groups = _groups(det)
     names = _names(spans)
     assert names["detect.call"] == names["upload"] == 1
     assert names["ladder+hog"] == names["conv"] == buckets
-    assert names["dp"] == names["walk"] == groups
+    assert names["dp"] == names["walk"] == names["view"] == groups
     assert names["seeds+sort"] == 2 * groups + 1
+    views = {s.index: s for s in spans if s.name == "view"}
     for s in spans:
-        if s.name != "detect.call":
+        if s.name in ("dp", "walk", "seeds+sort") and s.parent in views:
+            assert s.end_ns <= views[s.parent].end_ns, s
+        elif s.name != "detect.call":
             assert s.parent == call.index, s
+            assert s.name != "seeds+sort" or s.index == spans[-1].index
         assert s.root == call.root and s.end_ns >= s.start_ns
+    comps = det.model.components
+    for v in views.values():
+        inner = [s for s in spans if s.parent == v.index]
+        assert sorted(s.name for s in inner) == ["dp", "seeds+sort",
+                                                 "seeds+sort", "walk"]
+        c = v.attrs["component"]
+        assert v.attrs == {"component": c, "nparts": comps[c].nparts}
+        assert inner[0].name == "dp" and inner[0].attrs["component"] == c
     keys = {(d.attrs["bucket"], d.attrs["lo"], d.attrs["hi"],
              d.attrs["component"]) for d in spans if d.name == "dp"}
     assert len(keys) == groups
@@ -97,8 +122,7 @@ def test_span_tree(det, entry):
     root = spans[0]
     assert root.parent == -1 and all(s.parent >= 0 for s in spans[1:])
     call = next(s for s in spans if s.name == "detect.call")
-    detect = [s for s in spans if s.index == call.index
-              or s.parent == call.index]
+    detect = _subtree(spans, call)
     if entry == "process":
         assert root.name == "serve.frame"
         assert root.attrs == {"seq": 0, "frame": 0}
@@ -160,6 +184,35 @@ def test_spans_on_the_profiler_clock(det):
     """Under torch.profiler each span is a record_function range named
     stage:<name> (the detector's stages) or span:<name>, on the same
     clock: its edges within 1 ms of the tracer's record."""
+    _check_on_the_profiler_clock(det)
+
+
+def test_spans_on_the_profiler_clock_through_slow_collections(det):
+    """The same with a pass of Python's cyclic garbage collector started
+    at every allocation, and 3 ms long (as on a large heap) wherever the
+    tracer's own code started it: no pass falls between a span's stamp
+    and its range's edge."""
+    import gc
+    import sys
+
+    def slow(phase, info):
+        f = sys._getframe(1)
+        while phase == "start" and f is not None:
+            if f.f_code.co_filename == profiling.__file__:
+                time.sleep(0.003)
+                return
+            f = f.f_back
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 10000, 10000)
+    gc.callbacks.append(slow)
+    try:
+        _check_on_the_profiler_clock(det)
+    finally:
+        gc.callbacks.remove(slow)
+        gc.set_threshold(*thresholds)
+
+
+def _check_on_the_profiler_clock(det):
     from torch.profiler import ProfilerActivity, profile
     rgb, depth = _frame()
     sd = _serving(det)
@@ -192,7 +245,8 @@ def test_spans_on_the_profiler_clock(det):
 def test_readbacks(det, site):
     """readbacks: two reads a step of the NMS (a step a kept candidate,
     and one that finds none), a read a field of the fetch, and on the
-    serving path the wait besides."""
+    serving path the wait besides; the detect there counts its views
+    and no padded row (one component)."""
     rgb, depth = _frame()
     cands = det.detect_raw(rgb, depth=depth)
     sd = _serving(det)
@@ -210,7 +264,46 @@ def test_readbacks(det, site):
             assert len(sd.process(rgb, depth).detections) == int(kept.sum())
         else:
             nms[site]()
-    assert t.counters == {"readbacks": want}
+    views = {"views": _groups(det)[1], "parts.padded": 0} \
+        if site == "process" else {}
+    assert t.counters == {"readbacks": want, **views}
+
+
+@pytest.fixture(scope="module")
+def views2():
+    """Two views of 4 and 2 parts (tests/test_torch_views.py's kind)."""
+    from bench_port.core import program, weights
+    cfg = {"name": "views2", "filter_size": 5, "flen": 14, "norient": 6,
+           "binsize": 4, "interval": 4, "k_per_level": 4,
+           "compose": "reference", "dp_split": None,
+           "conv_engine": "spatial", "components": [
+               {"nparts": 4, "nmixtures": 2, "root_nmixtures": 1,
+                "parent": [-1, 0, 1, 1]},
+               {"nparts": 2, "nmixtures": 1, "root_nmixtures": 1,
+                "parent": [-1, 0]}]}
+    arrays = weights.model_arrays(cfg, 31415926535, "cpu")
+    return program.build_detector(arrays, cfg, -1e9, "cpu")
+
+
+def test_view_spans_and_counters(views2):
+    """Under detect_batch_raw: a view span a dp group and view, child of
+    detect.call, around its pass's stages; views = dp groups x views;
+    parts.padded = the smaller view's candidates x the rows it lacks."""
+    rgb, _ = _frame()
+    B = 2
+    with profiling.tracing() as t:
+        views2.detect_batch_raw(np.stack([rgb] * B))
+    call = t.spans[0]
+    assert call.name == "detect.call"
+    _check_detect(views2, t.spans, call)
+    plan = views2.plan_for(SHAPE)
+    groups = [hi - lo for b in plan.buckets
+              for lo, hi, _, _ in _dp_groups(b, views2.dp_split)]
+    assert t.counters["views"] == 2 * len(groups)
+    assert t.counters["parts.padded"] == \
+        sum(B * n * views2.k_per_level * (4 - 2) for n in groups)
+    assert [v.attrs["nparts"] for v in t.spans if v.name == "view"] == \
+        [4, 2] * len(groups)
 
 
 def test_walk_launches_none_on_the_cpu(det):
