@@ -1683,6 +1683,8 @@ def phase_serving(smi: str) -> dict:
 
     # (5) card vs CPU at 120x160 through StreamingDetector
     serve_card_vs_cpu()
+    # (5b) the 3-D boxes at 640x480, card vs CPU tensors
+    serve_boxes3d(streamed, depths, cam)
 
     # (6) clusters: the cleaned_cloud topic, planes removed, 2 frames;
     # a prebuilt detector and no name
@@ -1740,7 +1742,7 @@ def serve_card_vs_cpu() -> None:
     """(5) person-26 at 120x160 through a StreamingDetector on the card
     and one on the CPU: the raw Candidates under the cross-engine
     contract, then, where the detections agree, equal masks and
-    boxes3d, part_centers and poses within 1e-5.  The paint NMS keeps
+    boxes3d, part_centers and poses.  The paint NMS keeps
     overlaps up to 0.9 here: a person-26 hull spans most of a 120x160
     frame, so the node's 0.1 keeps one detection there (0.9: five)."""
     from partsbaseddetector_tpu_torch.infer.stream import StreamingDetector
@@ -1763,11 +1765,60 @@ def serve_card_vs_cpu() -> None:
     whole = n == len(a.detections) == len(b.detections)
     if whole and not np.array_equal(a.mask, b.mask):
         raise RuntimeError("serve: card vs CPU: masks differ")
-    gap = same_3d(a, b, n, "serve: card vs CPU", 1e-5)
+    same_3d(a, b, n, "serve: card vs CPU", 0.0)
     log(f"serve: card vs CPU at 120x160 through StreamingDetector: {n} of "
         f"{len(a.detections)}/{len(b.detections)} detections agree"
         f"{', masks equal' if whole else ''}; boxes3d, part_centers, poses "
-        f"within {gap:.3g} (limit 1e-5)")
+        f"equal")
+
+
+def serve_boxes3d(results, depths, cam, reps: int = 3) -> None:
+    """(5b) The 3-D box stage at the ROS cell's sizes (640x480, up to 32
+    detections a frame): each served frame's detections through
+    post/cloud.compute_bounding_boxes with the z-extent's pass on the
+    card and on CPU tensors, in turns; boxes3d and part_centers equal to
+    each other and to the served FrameResult's (whose poses follow from
+    them); the stage's host ms (the card's pass ends in its one read),
+    its readbacks and its ``boxes3d.samples`` a frame."""
+    import dataclasses
+    from partsbaseddetector_tpu_torch.post.cloud import \
+        compute_bounding_boxes
+    from partsbaseddetector_tpu_torch.utils import profiling
+    ms = {"cuda": [], "cpu": []}
+    samples, ndets = [], []
+    compute_bounding_boxes(results[0].detections, IMG, depths[0], cam,
+                           device="cuda")                       # warm
+    for j, (res, depth) in enumerate(zip(results, depths)):
+        order = ("cuda", "cpu") if j % 2 == 0 else ("cpu", "cuda")
+        for dev in order * reps:
+            torch.cuda.synchronize()
+            with profiling.tracing() as t:
+                t0 = time.perf_counter()
+                boxes, centres = compute_bounding_boxes(
+                    res.detections, IMG, depth, cam, device=dev)
+                ms[dev].append((time.perf_counter() - t0) * 1e3)
+            c = t.counters
+            if (c.get("readbacks"), c.get("boxes3d.dets")) != \
+                    (1, len(res.detections)):
+                raise RuntimeError(f"serve: boxes3d counters {c}, frame {j}")
+            got = [dataclasses.astuple(b) for b in boxes]
+            want = [dataclasses.astuple(b) for b in res.boxes3d]
+            if not (np.array_equal(got, want, equal_nan=True)
+                    and len(centres) == len(res.part_centers)
+                    and all(np.array_equal(x, y) for x, y in
+                            zip(centres, res.part_centers))):
+                raise RuntimeError(f"serve: boxes3d on {dev} differ from "
+                                   f"the served frame {j}'s")
+        samples.append(c["boxes3d.samples"])
+        ndets.append(len(res.detections))
+    med = {d: float(np.median(v)) for d, v in ms.items()}
+    log(f"serve: boxes3d at {IMG[1]}x{IMG[0]}, {len(results)} frames, "
+        f"detections {ndets}: card == CPU tensors == the served results "
+        f"(boxes3d, part_centers); host ms a frame, median of "
+        f"{len(ms['cuda'])} in turns: card {med['cuda']:.3f} (min "
+        f"{min(ms['cuda']):.3f}), CPU tensors {med['cpu']:.3f} (min "
+        f"{min(ms['cpu']):.3f}); boxes3d.samples a frame {samples} (mean "
+        f"{np.mean(samples):.0f}); 1 readback a frame")
 
 
 # ---------------------------------------------------------------- phase 9

@@ -411,7 +411,8 @@ class StreamingDetector:
         if needs_3d and depth is not None and self.camera is not None:
             with profiling.span("post.boxes3d"):
                 res.boxes3d, res.part_centers = compute_bounding_boxes(
-                    detections, rgb.shape[:2], depth, self.camera)
+                    detections, rgb.shape[:2], depth, self.camera,
+                    device=cands.score.device)
                 self._emit("boxes3d", res.boxes3d)
                 self._emit("part_centers", res.part_centers)
             if self._wants("clusters") and cloud is not None:

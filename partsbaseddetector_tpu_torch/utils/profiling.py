@@ -36,7 +36,10 @@ Here the port has one tracer and the device views it is measured by:
   Counters: ``readbacks`` (device-to-host reads and synchronizes that
   stall the launch queue: paint/part NMS's two reads a step, the six
   fields a fetch reads, the serving wait, the walk's read of a
-  ``parent`` given on the device), ``walk.launches`` (launches of
+  ``parent`` given on the device, the 3-D boxes' one read a frame),
+  ``boxes3d.dets`` and ``boxes3d.samples`` (the detections of a
+  post/cloud.compute_bounding_boxes call, and the depth samples of
+  their z-extents), ``walk.launches`` (launches of
   the walk kernel), ``dp.launches`` (launches of the DP kernel,
   csrc/dp.cu: two a depth of the tree a (group, component) call, two a
   part on the filter-keyed DP of shared filter ids), ``views`` (one a

@@ -144,6 +144,128 @@ def case_compute_bounding_boxes(m, rng):
     return m.cloud.compute_bounding_boxes(dets, (100, 100), depth, cam)
 
 
+def _person_detections(m, rng, n, P, H, W, lo, hi, spread=0.15):
+    """n seeded detections of P part boxes lo..hi px wide about a centre
+    each, some of them over the image's edges."""
+    out = []
+    for i in range(n):
+        c = rng.uniform(0, [W, H])
+        xy = c + rng.normal(0, spread * W, (P, 2))
+        half = rng.uniform(lo, hi, (P, 2)) / 2
+        parts = np.concatenate([xy - half, xy + half], 1).astype(np.float32)
+        out.append(m.Detection(score=float(1.0 - 0.01 * i), component=0,
+                               level=i % 5, parts=parts,
+                               locations=np.zeros((P, 3), np.int32)))
+    return out
+
+
+def _scene_depth(rng, H, W):
+    """A depth map in millimetres as metres (bench_port/core/scene.py's
+    kind): a plane at about 1.8-2 m, 0.5 mm farther a row, with a nearer
+    box face 0.5 mm farther a column; many equal values."""
+    ys, xs = np.mgrid[:H, :W]
+    d = (1800 + ys // 2).astype(np.uint16)
+    bh, bw = rng.integers(H // 4, H // 2), rng.integers(W // 4, W // 2)
+    y0, x0 = rng.integers(0, H - bh), rng.integers(0, W - bw)
+    d[y0:y0 + bh, x0:x0 + bw] = rng.integers(1200, 1600) \
+        + xs[y0:y0 + bh, x0:x0 + bw] // 2
+    return (d / 1000.0).astype(np.float32)
+
+
+def _boxes3d(m, dets, imsize, depth, each=True):
+    """compute_bounding_boxes over the detections at a Kinect-like
+    camera, and bounding_box_3d of each (each=False: of the first 4)."""
+    H, W = imsize
+    cam = m.depth.CameraModel(fx=525.0 * W / 640, fy=525.0 * W / 640,
+                              cx=(W - 1) / 2, cy=(H - 1) / 2)
+    return [m.cloud.compute_bounding_boxes(dets, imsize, depth, cam),
+            [m.cloud.bounding_box_3d(d, imsize, depth)
+             for d in (dets if each else dets[:4])]]
+
+
+def case_boxes3d_scene(m, rng):
+    """640x480, 32 person-sized detections, part boxes 20-260 px."""
+    depth = _scene_depth(rng, 480, 640)
+    dets = _person_detections(m, rng, 32, 26, 480, 640, 20, 260)
+    return _boxes3d(m, dets, (480, 640), depth)
+
+
+def case_boxes3d_holes(m, rng):
+    """Unknown (0) and NaN pixels, a region of nothing but holes; the
+    map as float32, float64 and uint16 millimetres."""
+    depth = _depth_map(rng, 120, 160)
+    depth[30:70, 40:100] = np.where(rng.random((40, 60)) < 0.5, 0.0,
+                                    np.nan)
+    dets = _person_detections(m, rng, 12, 9, 120, 160, 4, 60)
+    mm = np.nan_to_num(depth * 1000).astype(np.uint16)
+    return [_boxes3d(m, dets, (120, 160), d)
+            for d in (depth, depth.astype(np.float64), mm)]
+
+
+def case_boxes3d_first_box_empty(m, rng):
+    """A first box over holes only, later boxes over depth: invalid; a
+    first box with one valid pixel: valid."""
+    depth = _scene_depth(rng, 120, 160)
+    depth[10:40, 10:40] = 0.0
+    depth[20, 25] = np.nan
+    dets = _person_detections(m, rng, 6, 5, 120, 160, 10, 40)
+    for d in dets[:4]:
+        d.parts[0] = [12, 12, 30, 30]
+    depth[15, 15] = 1.25
+    hole = depth.copy()
+    hole[15, 15] = 0.0
+    return [_boxes3d(m, dets, (120, 160), depth),
+            _boxes3d(m, dets, (120, 160), hole)]
+
+
+def case_boxes3d_edges(m, rng):
+    """Boxes on and past the image's edges, boxes of no width or height
+    and inverted ones, a first box wholly off the image."""
+    depth = _scene_depth(rng, 96, 128)
+    dets = _person_detections(m, rng, 8, 6, 96, 128, 8, 50, spread=0.6)
+    dets[0].parts[0] = [-40, -30, -5, -2]
+    dets[1].parts[:3] = [[0, 0, 128, 96], [127.9, 95.9, 400, 300],
+                         [-10, 20, 0, 60]]
+    dets[2].parts[1:4] = [[30, 30, 30, 70], [50, 40, 90, 40],
+                          [80, 60, 60, 20]]
+    dets[3].parts[:] = [[100, 20, 140, 90]] * 6
+    return _boxes3d(m, dets, (96, 128), depth)
+
+
+def case_boxes3d_padded(m, rng):
+    """Views of 7 and 4 parts in one call: the port's rows padded to 7
+    (loc -1, boxes 0), the JAX package's cut to the view's own."""
+    depth = _scene_depth(rng, 120, 160)
+    dets = _person_detections(m, rng, 6, 7, 120, 160, 6, 50)
+    if m.Detection is DetT:
+        for d in dets[1::2]:
+            d.parts[4:] = 0.0
+            d.locations[4:] = -1
+    else:
+        dets[1::2] = [dataclasses.replace(d, parts=d.parts[:4],
+                                          locations=d.locations[:4])
+                      for d in dets[1::2]]
+    return _boxes3d(m, dets, (120, 160), depth)
+
+
+def case_boxes3d_chunks(m, rng):
+    """More detections than one chunk of the batched pass at 640x480."""
+    n = 60
+    assert cloud_t._chunk_rows(n, 481 * 641, 4) < n
+    depth = _scene_depth(rng, 480, 640)
+    depth[rng.random(depth.shape) < 0.1] = 0.0
+    dets = _person_detections(m, rng, n, 26, 480, 640, 20, 160)
+    return _boxes3d(m, dets, (480, 640), depth, each=False)
+
+
+def case_boxes3d_small_depth(m, rng):
+    """A depth map smaller than the image (sx = 231/640, sy = 173/480),
+    and one larger (sx = sy = 2)."""
+    dets = _person_detections(m, rng, 10, 8, 480, 640, 20, 200)
+    return [_boxes3d(m, dets, (480, 640), _scene_depth(rng, *s))
+            for s in ((173, 231), (960, 1280))]
+
+
 def case_organized_multiplane_segmentation(m, rng):
     H = W = 40
     xs, ys = np.meshgrid(np.linspace(-1, 1, W), np.linspace(-1, 1, H))
@@ -161,7 +283,10 @@ CASES = {f.__name__[5:]: f for f in (
     case_rect3, case_filter_candidates_by_depth,
     case_filter_response_by_depth, case_poses_from_part_centers,
     case_euclidean_clusters, case_cluster_objects, case_bounding_box_3d,
-    case_compute_bounding_boxes, case_organized_multiplane_segmentation)}
+    case_compute_bounding_boxes, case_organized_multiplane_segmentation,
+    case_boxes3d_scene, case_boxes3d_holes, case_boxes3d_first_box_empty,
+    case_boxes3d_edges, case_boxes3d_padded, case_boxes3d_chunks,
+    case_boxes3d_small_depth)}
 
 
 def _assert_same(got, ref, path="out"):

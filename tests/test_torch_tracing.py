@@ -240,13 +240,41 @@ def _check_on_the_profiler_clock(det):
         assert a <= s.start_ns and s.end_ns <= b
 
 
+def _reference_samples(detection, imsize, depth):
+    """The depth samples the reference's z-extent gathers for a
+    detection (include/Candidate.hpp:150-175, the JAX package's
+    post/cloud.bounding_box_3d): the valid pixels under its part boxes
+    and its mean +- 1.5 sigma box, box by box; none when the first box
+    holds none."""
+    H, W = imsize
+    sx, sy = depth.shape[1] / W, depth.shape[0] / H
+    parts = detection.own().parts
+    cx = (parts[:, 0] + parts[:, 2]) / 2.0
+    cy = (parts[:, 1] + parts[:, 3]) / 2.0
+    boxes = [np.clip(p, [0, 0, 0, 0], [W, H, W, H]) for p in parts]
+    boxes.append(np.clip([cx.mean() - 1.5 * cx.std(),
+                          cy.mean() - 1.5 * cy.std(),
+                          cx.mean() + 1.5 * cx.std(),
+                          cy.mean() + 1.5 * cy.std()],
+                         [0, 0, 0, 0], [W, H, W, H]))
+    n = 0
+    for b in boxes:
+        part = depth[int(b[1] * sy):int(b[3] * sy),
+                     int(b[0] * sx):int(b[2] * sx)].ravel()
+        n += int(((part != 0) & ~np.isnan(part)).sum())
+        if not n:
+            return 0
+    return n
+
+
 @pytest.mark.parametrize("site", ["paint_nms", "part_nms", "fetch",
                                   "process"])
 def test_readbacks(det, site):
     """readbacks: two reads a step of the NMS (a step a kept candidate,
     and one that finds none), a read a field of the fetch, and on the
-    serving path the wait besides; the detect there counts its views
-    and no padded row (one component)."""
+    serving path the wait besides and the 3-D boxes' one read; the
+    detect there counts its views and no padded row (one component),
+    the 3-D boxes their detections and samples."""
     rgb, depth = _frame()
     cands = det.detect_raw(rgb, depth=depth)
     sd = _serving(det)
@@ -256,17 +284,44 @@ def test_readbacks(det, site):
     assert 0 < int(kept.sum()) and not bool(kept[-1])
     steps = int(kept.sum()) + 1
     want = {"paint_nms": 2 * steps, "part_nms": 2 * steps, "fetch": 6,
-            "process": 1 + 2 * steps + 6}[site]
+            "process": 1 + 2 * steps + 6 + 1}[site]
     with profiling.tracing() as t:
         if site == "fetch":
             Detector.candidates_to_detections(cands)
         elif site == "process":
-            assert len(sd.process(rgb, depth).detections) == int(kept.sum())
+            dets = sd.process(rgb, depth).detections
+            assert len(dets) == int(kept.sum())
         else:
             nms[site]()
-    views = {"views": _groups(det)[1], "parts.padded": 0} \
+    served = {"views": _groups(det)[1], "parts.padded": 0,
+              "boxes3d.dets": len(dets),
+              "boxes3d.samples": sum(_reference_samples(d, SHAPE, depth)
+                                     for d in dets)} \
         if site == "process" else {}
-    assert t.counters == {"readbacks": want, **views}
+    assert t.counters == {"readbacks": want, **served}
+
+
+def test_boxes3d_counters(det):
+    """One served frame with holes in its depth: boxes3d.dets counts the
+    kept detections, boxes3d.samples the samples the reference gathers
+    for them, and the 3-D boxes add one readback to the frame's."""
+    rgb, depth = _frame()
+    depth[np.random.default_rng(5).random(SHAPE) < 0.3] = 0.0
+    depth[:, :20] = 0.0
+    sd = _serving(det)
+    bare = StreamingDetector(det, camera=sd.camera, max_overlap=0.5)
+    bare.on("detections", lambda _: None)
+    with profiling.tracing() as t:      # one store: keep its counters
+        dets = sd.process(rgb, depth).detections
+    served = dict(t.counters)
+    with profiling.tracing() as t:
+        bare.process(rgb, depth)
+    want = [_reference_samples(d, SHAPE, depth) for d in dets]
+    assert len(dets) > 1 and 0 < sum(want)
+    assert served["boxes3d.dets"] == len(dets)
+    assert served["boxes3d.samples"] == sum(want)
+    assert served["readbacks"] == t.counters["readbacks"] + 1
+    assert "boxes3d.dets" not in t.counters
 
 
 @pytest.fixture(scope="module")
