@@ -1754,8 +1754,8 @@ def serve_card_vs_cpu() -> None:
     sds = {d: subscribe(StreamingDetector(
         m, camera=kinect_camera(SMALL), max_overlap=0.9, k_per_level=8,
         device=d)) for d in ("cuda", "cpu")}
-    contract_vs_cpu(sds["cuda"]._detect_single(rgb),
-                    sds["cpu"]._detect_single(rgb), 8,
+    contract_vs_cpu(sds["cuda"].detector.detect_raw(rgb),
+                    sds["cpu"].detector.detect_raw(rgb), 8,
                     sds["cpu"].detector.plan_for(SMALL).levels,
                     "serve: card vs CPU at 120x160 (raw)")
     a, b = (sds[d].process(rgb, depth, cloud) for d in ("cuda", "cpu"))

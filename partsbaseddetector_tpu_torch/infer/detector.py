@@ -1,6 +1,7 @@
 """Detector facade: the PyTorch counterpart of partsbaseddetector_tpu's
 Detector (single-resolution models; multi-resolution ones go to
-infer/multires.py).
+infer/multires.py), and the surface every one-device facade shares
+(DetectorFacade).
 
 Mirrors the reference's 4-stage pipeline (reference:
 src/PartsBasedDetector.cpp:69-95), run eagerly on one device with the
@@ -34,7 +35,7 @@ from partsbaseddetector_tpu_torch.ops import argmax as argmax_ops
 from partsbaseddetector_tpu_torch.ops.common import NEG, resolve_device
 # CONV_ENGINES is re-exported: the engines by name, as the JAX package's
 # infer/detector exports them
-from partsbaseddetector_tpu_torch.ops.conv import CONV_ENGINES  # noqa: F401
+from partsbaseddetector_tpu_torch.ops.conv import CONV_ENGINES
 from partsbaseddetector_tpu_torch.ops.dp import dp_min_levels
 from partsbaseddetector_tpu_torch.ops.hog import hog_features
 from partsbaseddetector_tpu_torch.ops.imageops import pyr_down, resize_linear
@@ -110,18 +111,19 @@ class DepthPrune:
     tol: float = 0.5
 
 
-def _depth_bad_mask(depth: torch.Tensor, bucket, cfg: DepthPrune
-                    ) -> torch.Tensor:
+def _depth_bad_mask(depth: torch.Tensor, levels, feat_pad,
+                    cfg: DepthPrune) -> torch.Tensor:
     """(B, L, fh, fw) bool: True where the response cell's observed
-    depth is implausible for its level's scale.  depth: (B, dh, dw)
+    depth is implausible for its level's scale, for the L ``levels`` of
+    a bucket of padded feature size ``feat_pad``.  depth: (B, dh, dw)
     float32 maps in meters, sampled at cell centers with host-computed
     indices (partsbaseddetector_tpu/infer/detector.py:99-117).  The
     comparison runs in float32 against the float32 image of each level's
     plausible depth and tolerance, as the JAX package's does."""
     dh, dw = depth.shape[-2:]
-    fh, fw = bucket.feat_pad
+    fh, fw = feat_pad
     ys, xs, zexp, lim = [], [], [], []
-    for lvl in bucket.levels:
+    for lvl in levels:
         th, tw = lvl.featsize
         ys.append(np.clip(((np.arange(fh) + 0.5) * dh
                            / max(th, 1)).astype(np.int32), 0, dh - 1))
@@ -188,8 +190,11 @@ def _ladder_hog(images: torch.Tensor, plan: PyramidPlan, norient: int,
 def pyramid_pdfs(images: torch.Tensor, packed: PackedModel,
                  plan: PyramidPlan, conv_engine: str = "spatial",
                  stage: StageTimer = profiling.stage,
-                 pdfs_transform: Optional[Callable] = None):
-    """Stages 1-2 for every bucket (ladder + HOG + filter-bank conv).
+                 pdfs_transform: Optional[Callable] = None, depths=None,
+                 depth_prune: Optional[DepthPrune] = None,
+                 levels: Optional[Sequence[Tuple[int, int]]] = None):
+    """Stages 1-2 for every bucket (ladder + HOG + filter-bank conv, then
+    the optional depth pruning): the one code that convolves a bucket.
 
     images: (B, H, W, C) frames on the model's device, any real dtype
     (uint8 frames are cast to float32 here, on the device).
@@ -203,46 +208,47 @@ def pyramid_pdfs(images: torch.Tensor, packed: PackedModel,
     "spatial" or "fft" (ops/conv.CONV_ENGINES).  pdfs_transform:
     optional fn(pdfs) applied to each bucket's responses after the conv
     (the filter-sharded paths all-gather their bank's output channels
-    with it, parallel/mesh.Mesh.gather_filters)."""
+    with it, parallel/mesh.Mesh.gather_filters).  depths + depth_prune:
+    optional (B, dh, dw) float32 depth maps and the pruning config:
+    responses at implausible depths become NEG, every bucket's after
+    the last conv.  levels: optional (lo, hi) per bucket, the levels of
+    it that are convolved (a scale-sharded rank's share, the ladder and
+    HOG still run whole); a bucket with none gets None in place of
+    pdfs and empty tsizes and scales."""
     conv = CONV_ENGINES[conv_engine]
     dev = images.device
     B = images.shape[0]
+    ranges = levels or [(0, len(b.levels)) for b in plan.buckets]
     out = []
-    for bucket, _, feats in _ladder_hog(images, plan, packed.norient,
-                                        packed.flen, stage):
-        L = len(bucket.levels)
+    for (bucket, _, feats), (lo, hi) in zip(
+            _ladder_hog(images, plan, packed.norient, packed.flen, stage),
+            ranges):
+        mine = bucket.levels[lo:hi]
+        if not mine:
+            out.append((bucket, None,
+                        torch.zeros((0, 2), dtype=torch.int32, device=dev),
+                        torch.zeros(0, dtype=torch.float32, device=dev)))
+            continue
+        if len(mine) < len(bucket.levels):
+            feats = feats.unflatten(0, (B, -1))[:, lo:hi].flatten(0, 1)
         with stage("conv"):
-            tsizes = torch.tensor([lvl.featsize for lvl in bucket.levels],
+            tsizes = torch.tensor([lvl.featsize for lvl in mine],
                                   dtype=torch.int32, device=dev)
-            pdfs = conv(feats, packed.bank,
-                        true_size=tsizes.repeat(B, 1)).unflatten(0, (B, L))
+            pdfs = conv(feats, packed.bank, true_size=tsizes.repeat(B, 1)
+                        ).unflatten(0, (B, len(mine)))
             if pdfs_transform is not None:
                 pdfs = pdfs_transform(pdfs)
-        scales = torch.tensor([lvl.scale for lvl in bucket.levels],
+        scales = torch.tensor([lvl.scale for lvl in mine],
                               dtype=torch.float32, device=dev)
         out.append((bucket, pdfs, tsizes, scales))
+    if depths is not None and depth_prune is not None:
+        with profiling.span("prune"):
+            for (bucket, pdfs, _, _), (lo, hi) in zip(out, ranges):
+                if pdfs is not None:
+                    bad = _depth_bad_mask(depths, bucket.levels[lo:hi],
+                                          bucket.feat_pad, depth_prune)
+                    pdfs.masked_fill_(bad[..., None], NEG)
     return out
-
-
-def pyramid_features_program(plan: PyramidPlan, norient: int, flen: int):
-    """Stage 1 alone: fn(image (H, W, C) tensor) -> per-level padded HOG
-    maps (fh, fw, flen) for the whole pyramid, the trainer's feature
-    write-back path (partsbaseddetector_tpu/infer/detector.py:207-237),
-    shared by the single- and multi-resolution facades."""
-    def fn(image: torch.Tensor) -> List[torch.Tensor]:
-        out: List[torch.Tensor] = []
-        for _, _, feats in _ladder_hog(image[None], plan, norient, flen):
-            out.extend(feats.unbind(0))
-        return out
-    return fn
-
-
-def features_to_numpy(feats: Sequence[torch.Tensor], plan: PyramidPlan
-                      ) -> List[np.ndarray]:
-    """pyramid_features_program's maps cut to each level's true size,
-    as host numpy arrays."""
-    return [f[:lvl.featsize[0], :lvl.featsize[1]].cpu().numpy()
-            for f, lvl in zip(feats, plan.levels)]
 
 
 def dp_backtrack_bucket(bucket, pdfs, tsizes, scales,
@@ -299,11 +305,7 @@ def dp_backtrack_bucket(bucket, pdfs, tsizes, scales,
                     X, Y, Mm = walk(
                         res.scores, res.tmp, xs, ys, mv, comp.defw,
                         comp.anchor.to(torch.float32), comp.bias,
-                        # on the host: the walk reads the tree without a
-                        # sync
-                        torch.tensor(packed.parent_static[c],
-                                     dtype=torch.int32),
-                        compose)
+                        comp.parent_host, compose)
                 with stage("seeds+sort"):
                     cands = argmax_ops._walked_candidates(
                         X, Y, Mm, topv, valid, comp, gscales, k_per_level,
@@ -311,75 +313,6 @@ def dp_backtrack_bucket(bucket, pdfs, tsizes, scales,
                     out.append(cands.map(
                         lambda x: x.unflatten(0, (B, Lg * k_per_level))))
     return out
-
-
-def _stage12(images: torch.Tensor, packed: PackedModel, plan: PyramidPlan,
-             conv_engine: str = "spatial", stage: StageTimer = profiling.stage,
-             depth=None, depth_cfg: Optional[DepthPrune] = None,
-             pdfs_transform: Optional[Callable] = None):
-    """Stages 1-2 of the detection program: pyramid_pdfs, then the
-    optional depth pruning (responses at implausible depths become NEG).
-    Returns pyramid_pdfs' list of (bucket, pdfs, tsizes, scales)."""
-    out = pyramid_pdfs(images, packed, plan, conv_engine, stage=stage,
-                       pdfs_transform=pdfs_transform)
-    if depth is not None and depth_cfg is not None:
-        with profiling.span("prune"):
-            for bucket, pdfs, _, _ in out:
-                bad = _depth_bad_mask(depth, bucket, depth_cfg)
-                pdfs.masked_fill_(bad[..., None], NEG)
-    return out
-
-
-def _stage34(per_bucket, packed: PackedModel, k_per_level: int,
-             compose: str, dp_split: int = 1, walk_impl: str = "cuda",
-             stage: StageTimer = profiling.stage, part_masks=None
-             ) -> argmax_ops.Candidates:
-    """Stages 3-4 of the detection program on _stage12's output: the DP
-    and the walk per (bucket, dp group, component), then one stable
-    sort per frame.  part_masks: optional per-bucket masks
-    (dp_backtrack_bucket's bmask)."""
-    all_cands: List[argmax_ops.Candidates] = []
-    # padded cells are masked in the DP (dp_min_levels(true_sizes=...))
-    # for both conv engines
-    for bucket, pdfs, tsizes, scales in per_bucket:
-        bmask = None if part_masks is None else part_masks[bucket.octave]
-        all_cands.extend(dp_backtrack_bucket(
-            bucket, pdfs, tsizes, scales, packed, k_per_level, compose,
-            dp_split, walk_impl, bmask, stage))
-    with stage("seeds+sort"):
-        return argmax_ops.sort_candidates(
-            argmax_ops.concat_candidates(all_cands))
-
-
-def _detect_program(images: torch.Tensor, packed: PackedModel,
-                    plan: PyramidPlan, k_per_level: int, compose: str,
-                    dp_split: int = 1, walk_impl: str = "cuda",
-                    stage: StageTimer = profiling.stage, depth=None,
-                    depth_cfg: Optional[DepthPrune] = None,
-                    part_masks=None, conv_engine: str = "spatial",
-                    pdfs_transform: Optional[Callable] = None
-                    ) -> argmax_ops.Candidates:
-    """The full detection program for a (B, H, W, C) batch of frames;
-    returns Candidates with fields (B, nlevels*k, ...), each frame's
-    sorted by score, invalid last.
-
-    depth + depth_cfg: optional (B, dh, dw) float32 depth maps and the
-    pruning config: responses at implausible depths become NEG before
-    the DP.  part_masks: optional per-bucket (L, P, fh, fw) bool masks of
-    allowed part placements (the latent-positive search), or
-    (B, L, P, fh, fw) ones per frame.  pdfs_transform: see
-    pyramid_pdfs."""
-    per_bucket = _stage12(images, packed, plan, conv_engine, stage, depth,
-                          depth_cfg, pdfs_transform)
-    return _stage34(per_bucket, packed, k_per_level, compose, dp_split,
-                    walk_impl, stage, part_masks)
-
-
-def check_conv_engine(conv_engine: str) -> str:
-    if conv_engine not in CONV_ENGINES:
-        raise ValueError(f"conv_engine {conv_engine!r}; one of "
-                         f"{sorted(CONV_ENGINES)}")
-    return conv_engine
 
 
 def device_frames(images, ndim: int, device: torch.device) -> torch.Tensor:
@@ -391,70 +324,82 @@ def device_frames(images, ndim: int, device: torch.device) -> torch.Tensor:
     return images
 
 
-def device_depths(depths, device: torch.device) -> torch.Tensor:
-    """Depth maps (meters) as float32 on the device."""
-    return torch.as_tensor(depths, dtype=torch.float32, device=device)
-
-
 def device_masks(part_masks, device: torch.device) -> List[torch.Tensor]:
     """Per-bucket part placement masks as bool tensors on the device."""
     return [torch.as_tensor(m, dtype=torch.bool, device=device)
             for m in part_masks]
 
 
-class Detector:
-    """User-facing facade.
+def check_depth(depths, depth_prune: Optional[DepthPrune]) -> None:
+    """A depth map is for the depth pruning: a detector without a
+    ``depth_prune`` config refuses one."""
+    if depths is not None and depth_prune is None:
+        raise ValueError(
+            "depth map passed but this detector has no depth_prune "
+            "config; construct it with depth_prune=DepthPrune(...)")
 
-    >>> det = Detector(model)                # CUDA; device="cpu" for CPU
-    >>> detections = det.detect(image)       # (H, W[, 3]) RGB array
 
-    depth_prune: optional DepthPrune config, used when a depth map is
-    passed.  conv_engine: "spatial" or "fft".  walk_impl: "cuda" (the
-    walk kernel; its plain version on CPU tensors), "torch" (the plain
-    walk) or "auto" ("cuda" on a CUDA device, "torch" on the CPU)."""
+def upload(images, ndim: int, device: torch.device, depths=None,
+           part_masks=None):
+    """The inputs of one call onto the device: images (H, W[, C]) for
+    ndim 3 (one frame) or (B, H, W[, C]) for ndim 4, as (B, H, W, C)
+    frames; depths (meters) as (B, dh, dw) float32 maps or None;
+    part_masks per bucket as bool tensors or None."""
+    frames = device_frames(images, ndim, device)
+    if ndim == 3:
+        frames = frames[None]
+    elif frames.ndim != 4:
+        raise ValueError("a batch of frames is (B, H, W[, 3]), got "
+                         f"shape {tuple(frames.shape)}")
+    if depths is not None:
+        depths = torch.as_tensor(depths, dtype=torch.float32, device=device)
+        depths = depths.reshape(frames.shape[:1] + depths.shape[-2:])
+    if part_masks is not None:
+        part_masks = device_masks(part_masks, device)
+    return frames, depths, part_masks
+
+
+def frame_by_frame(program, frames: torch.Tensor, depths=None,
+                   part_masks=None, *args) -> argmax_ops.Candidates:
+    """program(frames, depths, part_masks, *args) on one frame of a
+    (B, H, W, C) batch at a time, its Candidates (1, ...) stacked to
+    (B, ...): the programs whose later stages take one frame (the
+    multi-resolution DP and walk, the scale split).  Per-frame masks
+    (B, L, P, fh, fw) are cut to each frame's."""
+    return argmax_ops.stack_candidates([program(
+        frames[b:b + 1], None if depths is None else depths[b:b + 1],
+        None if part_masks is None else
+        [m[b] if m.ndim == 5 else m for m in part_masks],
+        *args).map(lambda x: x[0]) for b in range(frames.shape[0])])
+
+
+class DetectorFacade:
+    """What the one-device facades share (Detector, and MultiResDetector
+    in infer/multires.py): the packed model, the plan cache, the input
+    checks and the upload, and every entry point.  A facade gives the
+    stages 3-4 of its program (``_stage34``); ``multires`` says which
+    program it is.  The parallel detectors (parallel/) hold one and run
+    its ``_run``, ``_program`` or ``_stage34`` on their own share of the
+    work.  infer/multires.detector_for picks the facade for a model."""
+
+    multires = False
 
     def __init__(self, model: PartsModel, k_per_level: int = 64,
-                 compose: str = "reference",
-                 dp_split: Optional[int] = None,
                  depth_prune: Optional[DepthPrune] = None,
-                 conv_engine: str = "spatial",
-                 walk_impl: str = "auto",
-                 device=None):
-        if model.max_scale() > 0:
-            raise ValueError(
-                "model has parts at multiple resolutions (anchor ds > "
-                "0); use infer.multires.MultiResDetector")
-        if compose not in ("reference", "correct"):
-            raise ValueError(f"compose {compose!r}")
-        if walk_impl not in ("auto", "cuda", "torch"):
-            raise ValueError(f"walk_impl {walk_impl!r}; one of 'auto', "
-                             "'cuda', 'torch'")
-        self.conv_engine = check_conv_engine(conv_engine)
+                 conv_engine: str = "spatial", device=None):
+        if conv_engine not in CONV_ENGINES:
+            raise ValueError(f"conv_engine {conv_engine!r}; one of "
+                             f"{sorted(CONV_ENGINES)}")
+        self.conv_engine = conv_engine
         self.device = resolve_device(device)
         self.model = model
-        self.packed = pack_model(model, self.device)
+        self.packed = self._pack(model)
         self.k_per_level = int(k_per_level)
-        self.compose = compose
-        if dp_split is None:
-            # the JAX package's default: groups of about two levels
-            # (partsbaseddetector_tpu/infer/detector.py:346-351)
-            dp_split = max(1, (model.interval + 1) // 2)
-        self.dp_split = int(dp_split)
         self.depth_prune = depth_prune
-        if walk_impl == "auto":
-            walk_impl = "cuda" if self.device.type == "cuda" else "torch"
-        self.walk_impl = walk_impl
         self._plans: Dict[Tuple[int, int], PyramidPlan] = {}
 
-    @classmethod
-    def from_config(cls, model: PartsModel, cfg) -> "Detector":
-        """Build from a config.RuntimeConfig (the unified typed config;
-        partsbaseddetector_tpu/infer/detector.py:403-411), its
-        ``device`` included."""
-        return cls(model, k_per_level=cfg.k_per_level,
-                   compose=cfg.compose, dp_split=cfg.dp_split,
-                   conv_engine=cfg.conv_engine, walk_impl=cfg.walk_impl,
-                   device=cfg.device)
+    def _pack(self, model: PartsModel) -> PackedModel:
+        return pack_model(model, self.device)
 
     def plan_for(self, imshape: Tuple[int, int]) -> PyramidPlan:
         key = (int(imshape[0]), int(imshape[1]))
@@ -464,35 +409,41 @@ class Detector:
         return self._plans[key]
 
     def _run(self, images, ndim: int, stage: StageTimer = profiling.stage,
-             depths=None, part_masks=None) -> argmax_ops.Candidates:
+             depths=None, part_masks=None, program=None
+             ) -> argmax_ops.Candidates:
         """The detection program on host or device images: (H, W[, C])
-        for ndim 3 (one frame), (B, H, W[, C]) for ndim 4."""
-        if depths is not None and self.depth_prune is None:
-            raise ValueError(
-                "depth map passed but this Detector has no depth_prune "
-                "config; construct Detector(..., depth_prune="
-                "DepthPrune(...))")
+        for ndim 3 (one frame), (B, H, W[, C]) for ndim 4; returns
+        Candidates (B, ...).  program: fn(frames, depths, part_masks,
+        stage) in place of this facade's ``_program`` (a parallel
+        detector's, on this facade's device)."""
+        check_depth(depths, self.depth_prune)
         with profiling.span("detect.call"):
             with profiling.span("upload"):
-                frames = device_frames(images, ndim, self.device)
-                if ndim == 3:
-                    frames = frames[None]
-                elif frames.ndim != 4:
-                    raise ValueError(
-                        "detect_batch_raw expects (B, H, W, 3) images, got "
-                        f"shape {tuple(frames.shape)}")
-                if depths is not None:
-                    depths = device_depths(depths, self.device)
-                    depths = depths.reshape(frames.shape[:1]
-                                            + depths.shape[-2:])
-                if part_masks is not None:
-                    part_masks = device_masks(part_masks, self.device)
-            plan = self.plan_for(frames.shape[1:3])
-            return _detect_program(
-                frames, self.packed, plan, self.k_per_level, self.compose,
-                self.dp_split, self.walk_impl, stage, depth=depths,
-                depth_cfg=self.depth_prune, part_masks=part_masks,
-                conv_engine=self.conv_engine)
+                frames, depths, part_masks = upload(
+                    images, ndim, self.device, depths, part_masks)
+            return (program or self._program)(frames, depths, part_masks,
+                                              stage)
+
+    def _program(self, frames: torch.Tensor, depths=None, part_masks=None,
+                 stage: StageTimer = profiling.stage,
+                 packed: Optional[PackedModel] = None,
+                 pdfs_transform: Optional[Callable] = None
+                 ) -> argmax_ops.Candidates:
+        """The full detection program for a (B, H, W, C) batch of frames
+        on the device; returns Candidates with fields (B, nlevels*k,
+        ...), each frame's sorted by score, invalid last.
+
+        depths: optional (B, dh, dw) float32 depth maps, pruned with
+        ``depth_prune`` before the DP.  part_masks: optional per-bucket
+        (L, P, fh, fw) bool masks of allowed part placements (the
+        latent-positive search), or (B, L, P, fh, fw) ones per frame.
+        packed, pdfs_transform: a filter-sharded detector's bank shard
+        and its gather (pyramid_pdfs); stages 3-4 use the whole model."""
+        per_bucket = pyramid_pdfs(
+            frames, self.packed if packed is None else packed,
+            self.plan_for(frames.shape[1:3]), self.conv_engine, stage,
+            pdfs_transform, depths, self.depth_prune)
+        return self._stage34(per_bucket, part_masks, stage)
 
     def detect_raw(self, image, depth=None) -> argmax_ops.Candidates:
         """Detect in one (H, W[, 3]) frame; returns the fixed-capacity
@@ -506,8 +457,7 @@ class Detector:
     def detect_batch_raw(self, images, depths=None,
                          stage: StageTimer = profiling.stage
                          ) -> argmax_ops.Candidates:
-        """Detect in a (B, H, W[, 3]) stack of frames in one pass: the
-        batch is folded into the level axis of the DP and the walk.
+        """Detect in a (B, H, W[, 3]) stack of frames in one call.
         Returns Candidates with a leading (B, ...) axis; each frame's
         equal to its detect_raw.  depths: optional (B, dh, dw) depth
         maps, one per frame (needs ``depth_prune``).  stage: optional
@@ -523,13 +473,17 @@ class Detector:
             lambda x: x[0])
 
     def pyramid_features(self, image) -> List[np.ndarray]:
-        """Per-level HOG feature maps at their true sizes, as host numpy
-        arrays: the trainer's feature write-back (train/features.py)."""
+        """Stage 1 alone: per-level HOG feature maps at their true sizes,
+        as host numpy arrays, the trainer's feature write-back
+        (train/features.py; partsbaseddetector_tpu/infer/detector.py:
+        207-237)."""
         frame = device_frames(image, 3, self.device)
         plan = self.plan_for(frame.shape[:2])
-        fn = pyramid_features_program(plan, self.packed.norient,
-                                      self.packed.flen)
-        return features_to_numpy(fn(frame), plan)
+        feats = [f for _, _, bucket_feats in _ladder_hog(
+                     frame[None], plan, self.packed.norient, self.packed.flen)
+                 for f in bucket_feats.unbind(0)]
+        return [f[:lvl.featsize[0], :lvl.featsize[1]].cpu().numpy()
+                for f, lvl in zip(feats, plan.levels)]
 
     def detect(self, image, *, depth=None,
                max_detections: Optional[int] = None) -> List[Detection]:
@@ -544,9 +498,8 @@ class Detector:
                 or model.interval != self.model.interval):
             raise ValueError("update_model needs the same binsize and "
                              "interval")
-        packed = pack_model(model, self.device)
+        self.packed = self._pack(model)
         self.model = model
-        self.packed = packed
 
     @staticmethod
     def candidates_to_detections(cands: argmax_ops.Candidates,
@@ -579,3 +532,74 @@ class Detector:
                             len(out) >= max_detections:
                         break
             return out
+
+
+class Detector(DetectorFacade):
+    """User-facing facade for single-resolution models.
+
+    >>> det = Detector(model)                # CUDA; device="cpu" for CPU
+    >>> detections = det.detect(image)       # (H, W[, 3]) RGB array
+
+    depth_prune: optional DepthPrune config, used when a depth map is
+    passed.  conv_engine: "spatial" or "fft".  walk_impl: "cuda" (the
+    walk kernel; its plain version on CPU tensors), "torch" (the plain
+    walk) or "auto" ("cuda" on a CUDA device, "torch" on the CPU).  A
+    batch of frames is folded into the level axis of the DP and the
+    walk."""
+
+    def __init__(self, model: PartsModel, k_per_level: int = 64,
+                 compose: str = "reference",
+                 dp_split: Optional[int] = None,
+                 depth_prune: Optional[DepthPrune] = None,
+                 conv_engine: str = "spatial",
+                 walk_impl: str = "auto",
+                 device=None):
+        if model.max_scale() > 0:
+            raise ValueError(
+                "model has parts at multiple resolutions (anchor ds > "
+                "0); use infer.multires.MultiResDetector")
+        if compose not in ("reference", "correct"):
+            raise ValueError(f"compose {compose!r}")
+        if walk_impl not in ("auto", "cuda", "torch"):
+            raise ValueError(f"walk_impl {walk_impl!r}; one of 'auto', "
+                             "'cuda', 'torch'")
+        super().__init__(model, k_per_level, depth_prune, conv_engine,
+                         device)
+        self.compose = compose
+        if dp_split is None:
+            # the JAX package's default: groups of about two levels
+            # (partsbaseddetector_tpu/infer/detector.py:346-351)
+            dp_split = max(1, (model.interval + 1) // 2)
+        self.dp_split = int(dp_split)
+        if walk_impl == "auto":
+            walk_impl = "cuda" if self.device.type == "cuda" else "torch"
+        self.walk_impl = walk_impl
+
+    @classmethod
+    def from_config(cls, model: PartsModel, cfg) -> "Detector":
+        """Build from a config.RuntimeConfig (the unified typed config;
+        partsbaseddetector_tpu/infer/detector.py:403-411), its
+        ``device`` included."""
+        return cls(model, k_per_level=cfg.k_per_level,
+                   compose=cfg.compose, dp_split=cfg.dp_split,
+                   conv_engine=cfg.conv_engine, walk_impl=cfg.walk_impl,
+                   device=cfg.device)
+
+    def _stage34(self, per_bucket, part_masks=None,
+                 stage: StageTimer = profiling.stage
+                 ) -> argmax_ops.Candidates:
+        """Stages 3-4 on pyramid_pdfs' entries: the DP and the walk per
+        (bucket, dp group, component), then one stable sort per frame.
+        part_masks: optional per-bucket masks (dp_backtrack_bucket's
+        bmask)."""
+        all_cands: List[argmax_ops.Candidates] = []
+        # padded cells are masked in the DP (dp_min_levels(true_sizes=...))
+        # for both conv engines
+        for bucket, pdfs, tsizes, scales in per_bucket:
+            bmask = None if part_masks is None else part_masks[bucket.octave]
+            all_cands.extend(dp_backtrack_bucket(
+                bucket, pdfs, tsizes, scales, self.packed, self.k_per_level,
+                self.compose, self.dp_split, self.walk_impl, bmask, stage))
+        with stage("seeds+sort"):
+            return argmax_ops.sort_candidates(
+                argmax_ops.concat_candidates(all_cands))

@@ -26,24 +26,19 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from partsbaseddetector_tpu_torch.infer.detector import (
-    DepthPrune, Detection, Detector, _depth_bad_mask, check_conv_engine,
-    device_depths, device_frames, device_masks, features_to_numpy,
-    pyramid_features_program, pyramid_pdfs)
-from partsbaseddetector_tpu_torch.infer.pyramid_plan import (PyramidPlan,
-                                                             make_plan)
+    DepthPrune, Detector, DetectorFacade, StageTimer, frame_by_frame)
 from partsbaseddetector_tpu_torch.models.part_tree import (PackedComponent,
-                                                           PackedModel,
-                                                           pack_model)
+                                                           PackedModel)
 from partsbaseddetector_tpu_torch.models.schema import PartsModel
 from partsbaseddetector_tpu_torch.ops import argmax as argmax_ops
-from partsbaseddetector_tpu_torch.ops.common import NEG, resolve_device
+from partsbaseddetector_tpu_torch.ops.common import NEG
 from partsbaseddetector_tpu_torch.ops.dp import (_argmax_first, _dt_vals_at,
                                                  _inbounds)
 from partsbaseddetector_tpu_torch.ops.dt import shiftdt_max
+from partsbaseddetector_tpu_torch.utils import profiling
 
 
 def _dp_multires(per_bucket, o: int, L: int, comp: PackedComponent,
@@ -144,24 +139,6 @@ def _walk_levels(rootv, rooti, scores, tmps, comp: PackedComponent,
                                          levels, width)
 
 
-def _multires_stage12(image: torch.Tensor, packed: PackedModel,
-                      plan: PyramidPlan, depth=None,
-                      depth_cfg: Optional[DepthPrune] = None,
-                      conv_engine: str = "spatial", pdfs_transform=None):
-    """Stages 1-2 for one (H, W, C) frame: the single-resolution
-    detector's, with the optional per-bucket depth pruning.  Returns per
-    bucket (bucket, pdfs (L_b, fh_b, fw_b, F), tsizes, scales)."""
-    per_bucket = []
-    for b, pdfs, ts, sc in pyramid_pdfs(image[None], packed, plan,
-                                        conv_engine,
-                                        pdfs_transform=pdfs_transform):
-        if depth is not None and depth_cfg is not None:
-            bad = _depth_bad_mask(depth[None], b, depth_cfg)
-            pdfs = pdfs.masked_fill_(bad[..., None], NEG)
-        per_bucket.append((b, pdfs[0], ts, sc))
-    return per_bucket
-
-
 def _multires_walks(per_bucket, packed: PackedModel, k_per_level: int,
                     part_masks=None, slot0: int = 0
                     ) -> List[Tuple[int, Optional[argmax_ops.Candidates]]]:
@@ -201,56 +178,21 @@ def _multires_walks(per_bucket, packed: PackedModel, k_per_level: int,
     return out
 
 
-def _multires_stage34(per_bucket, packed: PackedModel, k_per_level: int,
-                      part_masks=None) -> argmax_ops.Candidates:
-    """Stages 3-4 for one frame on _multires_stage12's output: per root
-    bucket and component the cross-octave DP and walk, then one stable
-    sort."""
-    return argmax_ops.sort_candidates(argmax_ops.concat_candidates(
-        [c for _, c in _multires_walks(per_bucket, packed, k_per_level,
-                                       part_masks)]))
-
-
-def _multires_program(image: torch.Tensor, packed: PackedModel,
-                      plan: PyramidPlan, k_per_level: int, depth=None,
-                      depth_cfg: Optional[DepthPrune] = None,
-                      conv_engine: str = "spatial", part_masks=None,
-                      pdfs_transform=None) -> argmax_ops.Candidates:
-    """The multi-resolution detection program for one (H, W, C) frame.
-
-    depth + depth_cfg: optional (dh, dw) float32 depth map and pruning
-    config, per-bucket response pruning before the DP as on the
-    single-resolution path.  part_masks: optional per-bucket
-    (L_b, P, fh_b, fw_b) bool allowed-placement masks (see
-    _dp_multires).  pdfs_transform: see infer/detector.pyramid_pdfs.
-    Returns Candidates (nlevels*k, ...) sorted by score, invalid
-    last."""
-    per_bucket = _multires_stage12(image, packed, plan, depth, depth_cfg,
-                                   conv_engine, pdfs_transform)
-    return _multires_stage34(per_bucket, packed, k_per_level, part_masks)
-
-
-class MultiResDetector:
-    """Facade for multi-resolution models (max_scale() > 0); also valid
-    for single-resolution models, where it gives the Matlab-mode
-    semantics (the same values as Detector; argmax ties may differ).
+class MultiResDetector(DetectorFacade):
+    """Facade for multi-resolution models (parts at a finer octave than
+    their parent, anchor ds > 0); also valid for single-resolution
+    models, where it gives the Matlab-mode semantics (the same values as
+    Detector; argmax ties may differ).  Its program takes one frame at a
+    time: a batch's frames run in turn.
 
     >>> det = MultiResDetector(model)         # CUDA; device="cpu" for CPU
     >>> detections = det.detect(image)
     """
 
-    def __init__(self, model: PartsModel, k_per_level: int = 64,
-                 depth_prune: Optional[DepthPrune] = None,
-                 conv_engine: str = "spatial", device=None):
-        self.conv_engine = check_conv_engine(conv_engine)
-        self.device = resolve_device(device)
-        self.model = model
-        self.packed = self._pack(model)
-        self.k_per_level = int(k_per_level)
-        self.depth_prune = depth_prune
+    multires = True
 
     def _pack(self, model: PartsModel) -> PackedModel:
-        packed = pack_model(model, self.device)
+        packed = super()._pack(model)
         if any(c.aliased for c in packed.components):
             # the multi-resolution DP keys accumulation by (part, level);
             # filter-id buffer aliasing (ncscores,
@@ -263,62 +205,41 @@ class MultiResDetector:
                 "a component are not supported")
         return packed
 
-    def plan_for(self, imshape: Tuple[int, int]) -> PyramidPlan:
-        """PyramidPlan for an image shape (the trainer's mask and
-        feature plumbing uses it)."""
-        return make_plan(imshape, self.model.binsize, self.model.interval)
+    def _program(self, frames: torch.Tensor, depths=None, part_masks=None,
+                 stage: StageTimer = profiling.stage, packed=None,
+                 pdfs_transform=None) -> argmax_ops.Candidates:
+        """DetectorFacade._program, one frame at a time."""
+        return frame_by_frame(super()._program, frames, depths, part_masks,
+                              stage, packed, pdfs_transform)
 
-    def _run(self, image, depth=None, part_masks=None
-             ) -> argmax_ops.Candidates:
-        frame = device_frames(image, 3, self.device)
-        if depth is not None:
-            depth = device_depths(depth, self.device)
-        return _multires_program(
-            frame, self.packed, self.plan_for(frame.shape[:2]),
-            self.k_per_level, depth=depth, depth_cfg=self.depth_prune,
-            conv_engine=self.conv_engine,
-            part_masks=None if part_masks is None else
-            device_masks(part_masks, self.device))
+    def _stage34(self, per_bucket, part_masks=None,
+                 stage: StageTimer = profiling.stage
+                 ) -> argmax_ops.Candidates:
+        """Stages 3-4 on one frame's pyramid_pdfs entries (B = 1): per
+        root bucket and component the cross-octave DP and walk, then one
+        stable sort; Candidates (1, nlevels*k, ...).  part_masks:
+        optional per-bucket (L_b, P, fh_b, fw_b) bool masks (see
+        _dp_multires).  The walk is plain torch and has no stage hooks."""
+        walks = _multires_walks([(b, p[0], t, s) for b, p, t, s in per_bucket],
+                                self.packed, self.k_per_level, part_masks)
+        return argmax_ops.sort_candidates(argmax_ops.concat_candidates(
+            [c for _, c in walks])).map(lambda x: x[None])
 
-    def detect_raw(self, image, depth=None) -> argmax_ops.Candidates:
-        """Detect in one (H, W[, 3]) frame.  depth: optional (dh, dw)
-        depth map in meters; with a ``depth_prune`` config, responses at
-        implausible depths are masked before the DP."""
-        if depth is not None and self.depth_prune is None:
-            raise ValueError(
-                "depth map passed but this detector has no depth_prune "
-                "config (matches Detector behavior)")
-        return self._run(image, depth=depth)
 
-    def detect_masked_raw(self, image, part_masks) -> argmax_ops.Candidates:
-        """Latent-positive masked search: part_masks is the per-bucket
-        (L, P, fh, fw) bool format of Detector.detect_masked_raw; each
-        part's mask is read at its own octave (see _dp_multires)."""
-        return self._run(image, part_masks=part_masks)
-
-    def update_model(self, model: PartsModel) -> None:
-        """Swap in updated weights of the same binsize and interval."""
-        if (model.binsize != self.model.binsize
-                or model.interval != self.model.interval):
-            raise ValueError("update_model needs the same binsize and "
-                             "interval")
-        self.packed = self._pack(model)
-        self.model = model
-
-    def pyramid_features(self, image) -> List[np.ndarray]:
-        """Per-level HOG maps at their true sizes, as host numpy arrays
-        (the trainer's feature write-back; Detector.pyramid_features)."""
-        frame = device_frames(image, 3, self.device)
-        plan = self.plan_for(frame.shape[:2])
-        fn = pyramid_features_program(plan, self.packed.norient,
-                                      self.packed.flen)
-        return features_to_numpy(fn(frame), plan)
-
-    def detect(self, image, *, depth=None,
-               max_detections: Optional[int] = None) -> List[Detection]:
-        return self.candidates_to_detections(
-            self.detect_raw(image, depth=depth), max_detections)
-
-    # the same facade surface as Detector
-    candidates_to_detections = staticmethod(
-        Detector.candidates_to_detections)
+def detector_for(model: PartsModel, *, k_per_level: int = 64,
+                 compose: str = "reference", dp_split: Optional[int] = None,
+                 depth_prune: Optional[DepthPrune] = None,
+                 conv_engine: str = "spatial", walk_impl: str = "auto",
+                 device=None) -> DetectorFacade:
+    """The one-device facade for a model and its knobs: MultiResDetector
+    for a multi-resolution model, whose walk is plain torch in the
+    Matlab composition, so ``compose``, ``dp_split`` and ``walk_impl``
+    do not apply to it; else Detector."""
+    if model.max_scale() > 0:
+        return MultiResDetector(model, k_per_level=k_per_level,
+                                depth_prune=depth_prune,
+                                conv_engine=conv_engine, device=device)
+    return Detector(model, k_per_level=k_per_level, compose=compose,
+                    dp_split=dp_split, depth_prune=depth_prune,
+                    conv_engine=conv_engine, walk_impl=walk_impl,
+                    device=device)

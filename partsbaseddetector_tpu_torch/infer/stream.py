@@ -30,9 +30,9 @@ import numpy as np
 import torch
 
 from partsbaseddetector_tpu_torch.infer.detector import Detection, Detector
+from partsbaseddetector_tpu_torch.infer.multires import detector_for
 from partsbaseddetector_tpu_torch.models.schema import PartsModel
-from partsbaseddetector_tpu_torch.ops.argmax import (Candidates,
-                                                     stack_candidates)
+from partsbaseddetector_tpu_torch.ops.argmax import Candidates
 from partsbaseddetector_tpu_torch.post.cloud import (
     cluster_objects, compute_bounding_boxes,
     organized_multiplane_segmentation)
@@ -80,12 +80,13 @@ class StreamingDetector:
     The first argument is either a PartsModel — routed to the right
     backend like the reference frontends wrap the full facade
     (ros/Node.cpp:72-105, cells/detect.cpp:167-185): a ``mesh`` goes to
-    the sharded BatchDetector, multi-resolution models to
-    MultiResDetector, everything else to Detector, with every facade
-    knob (k_per_level / depth_prune / conv_engine / walk_impl /
-    dp_split / compose / device) passed through — or a PREBUILT
-    detector backend (Detector, MultiResDetector or BatchDetector), used
-    as-is.
+    the sharded BatchDetector, anything else to the facade that
+    infer/multires.detector_for picks, with every facade knob
+    (k_per_level / depth_prune / conv_engine / walk_impl / dp_split /
+    compose / device) passed through — or a PREBUILT detector facade
+    (any of the port's: Detector, MultiResDetector, BatchDetector,
+    ScaleShardedDetector, PipelinedDetector), used as-is through its
+    detect_raw and detect_batch_raw.
     """
 
     SINKS = ("detections", "overlay", "mask", "boxes3d", "clusters",
@@ -113,9 +114,9 @@ class StreamingDetector:
         include/PartsBasedDetector.hpp:172-174), in addition to their
         role in 3-D post-processing.
 
-        model: a PartsModel OR a prebuilt detector backend (any object
-        with detect_raw or detect_batch and a ``model`` attribute); when
-        prebuilt, the detector-construction knobs (k_per_level,
+        model: a PartsModel OR a prebuilt detector facade (any object
+        with detect_raw, detect_batch_raw, ``depth_prune`` and ``model``);
+        when prebuilt, the detector-construction knobs (k_per_level,
         depth_prune, mesh, conv_engine, walk_impl, dp_split, compose,
         device) are ignored.
         device: where a built backend runs; None means CUDA, and raises
@@ -123,16 +124,16 @@ class StreamingDetector:
         mesh: optional parallel.mesh.Mesh with (data, filter) axes —
         serve through the sharded BatchDetector on it (its device is
         the mesh's)."""
-        if hasattr(model, "detect_raw") or hasattr(model, "detect_batch"):
-            self.detector = model              # prebuilt backend
-            self.model = model.model
-        else:
+        if isinstance(model, PartsModel):
             self.detector = self._build_backend(
                 model, mesh=mesh, k_per_level=k_per_level,
                 depth_prune=depth_prune,
                 conv_engine=conv_engine, walk_impl=walk_impl,
                 dp_split=dp_split, compose=compose, device=device)
             self.model = model
+        else:
+            self.detector = model              # prebuilt facade
+            self.model = model.model
         self.camera = camera
         self.max_overlap = float(max_overlap)
         self.remove_planes = bool(remove_planes)
@@ -156,56 +157,10 @@ class StreamingDetector:
                 model, mesh, k_per_level=k_per_level, compose=compose,
                 dp_split=dp_split, conv_engine=conv_engine,
                 depth_prune=depth_prune, walk_impl=walk_impl)
-        if model.max_scale() > 0:
-            from partsbaseddetector_tpu_torch.infer.multires import \
-                MultiResDetector
-            return MultiResDetector(
-                model, k_per_level=k_per_level, depth_prune=depth_prune,
-                conv_engine=conv_engine, device=device)
-        return Detector(model, k_per_level=k_per_level, compose=compose,
-                        dp_split=dp_split, depth_prune=depth_prune,
-                        conv_engine=conv_engine, walk_impl=walk_impl,
-                        device=device)
-
-    # ---------------------------------------------- backend dispatch
-    # normalize the three facades (Detector / MultiResDetector /
-    # BatchDetector) to single-frame and batched raw calls so every
-    # pipeline entry point serves any backend
-    def _detect_single(self, rgb, depth=None) -> Candidates:
-        det = self.detector
-        if hasattr(det, "detect_raw"):
-            return det.detect_raw(rgb, depth=depth)
-        # mesh backend: replicate the frame over the data axis, keep
-        # result 0 — single-frame serving on a mesh pays replication,
-        # use process_batch/stream for mesh throughput
-        ndata = det.mesh.shape["data"]
-        rgbs = np.repeat(np.asarray(rgb)[None], ndata, 0)
-        ds = None if depth is None else \
-            np.repeat(np.asarray(depth)[None], ndata, 0)
-        return det.detect_batch(rgbs, depths=ds).map(lambda x: x[0])
-
-    def _detect_batch(self, rgbs, depths=None) -> Candidates:
-        det = self.detector
-        if hasattr(det, "detect_batch_raw"):
-            return det.detect_batch_raw(rgbs, depths=depths)
-        if hasattr(det, "detect_batch"):   # BatchDetector (mesh)
-            ndata = det.mesh.shape["data"]
-            B = len(rgbs)
-            pad = (-B) % ndata
-            if pad:      # repeat the last frame up to a data-axis multiple
-                rgbs = np.concatenate(
-                    [rgbs, np.repeat(np.asarray(rgbs)[-1:], pad, 0)])
-                if depths is not None:
-                    depths = np.concatenate(
-                        [depths, np.repeat(np.asarray(depths)[-1:], pad,
-                                           0)])
-            out = det.detect_batch(rgbs, depths=depths)
-            return out.map(lambda x: x[:B]) if pad else out
-        # MultiResDetector: one frame a call, stacked on the device so
-        # the result has the same (B, ...) field shapes
-        return stack_candidates([det.detect_raw(
-            rgbs[i], depth=None if depths is None else depths[i])
-            for i in range(len(rgbs))])
+        return detector_for(
+            model, k_per_level=k_per_level, compose=compose,
+            dp_split=dp_split, depth_prune=depth_prune,
+            conv_engine=conv_engine, walk_impl=walk_impl, device=device)
 
     def on(self, sink: str, fn: Callable) -> None:
         if sink not in self._sinks:
@@ -245,15 +200,14 @@ class StreamingDetector:
                 torch.cuda.synchronize(dev)
         return cands_b
 
-    def _fetch_or_retry(self, cands_b, rgbs, redispatch=None):
+    def _fetch_or_retry(self, cands_b, rgbs, redispatch):
         """Materialize a batch result; on a device/runtime failure,
         notify the ``error`` sink and RE-DISPATCH the batch (the
         detector is pure + deterministic, so a retry reproduces the
         exact result) with exponential backoff, up to ``max_retries``
         times.
 
-        redispatch: zero-arg callable re-issuing the device call
-        (defaults to the batched detect on ``rgbs``).
+        redispatch: zero-arg callable re-issuing the device call.
 
         Neither the reference nor its runtime has any failure handling
         (SURVEY.md §5 "none anywhere"); this is the serving-level story
@@ -261,8 +215,6 @@ class StreamingDetector:
         batch re-execution instead of the stream."""
         import time as _time
 
-        if redispatch is None:
-            redispatch = lambda: self._detect_batch(rgbs)  # noqa: E731
         delay = self.retry_backoff_s
         for attempt in range(self.max_retries + 1):
             try:
@@ -291,8 +243,8 @@ class StreamingDetector:
         d = depth if self.detector.depth_prune is not None else None
         with self._frame_span(0):
             cands = self._fetch_or_retry(
-                self._detect_single(rgb, depth=d), [rgb],
-                redispatch=lambda: self._detect_single(rgb, depth=d))
+                self.detector.detect_raw(rgb, depth=d), [rgb],
+                redispatch=lambda: self.detector.detect_raw(rgb, depth=d))
             return self._postprocess(cands, rgb, depth, cloud)
 
     def _frame_span(self, index: int):
@@ -314,8 +266,9 @@ class StreamingDetector:
         if depths is not None and self.detector.depth_prune is not None:
             d = np.asarray(depths)
         cands_b = self._fetch_or_retry(
-            self._detect_batch(rgbs, depths=d), rgbs,
-            redispatch=lambda: self._detect_batch(rgbs, depths=d))
+            self.detector.detect_batch_raw(rgbs, depths=d), rgbs,
+            redispatch=lambda: self.detector.detect_batch_raw(rgbs,
+                                                              depths=d))
         out = []
         for i in range(rgbs.shape[0]):
             with self._frame_span(i):
@@ -353,7 +306,7 @@ class StreamingDetector:
                     dg = dg + [dg[-1]]
             rgbs = np.asarray(g)
             db = np.asarray(dg) if prune else None
-            cands_b = self._detect_batch(rgbs, depths=db)
+            cands_b = self.detector.detect_batch_raw(rgbs, depths=db)
             if pending is not None:
                 yield from self._drain(pending, depths, clouds)
             pending = (rgbs, db, n_real, offset, cands_b)
@@ -365,7 +318,8 @@ class StreamingDetector:
         rgbs, db, n_real, offset, cands_b = pending
         cands_b = self._fetch_or_retry(
             cands_b, rgbs,
-            redispatch=lambda: self._detect_batch(rgbs, depths=db))
+            redispatch=lambda: self.detector.detect_batch_raw(rgbs,
+                                                              depths=db))
         for i in range(n_real):
             j = offset + i
             # the span closes before the yield: the consumer's time is

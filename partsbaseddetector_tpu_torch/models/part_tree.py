@@ -12,6 +12,7 @@ slots carry ``NEG`` biases so they can never win a max.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -47,6 +48,9 @@ class PackedComponent:
       parent_static   -> host copy of parent, from which ops/dp builds
                          the DP kernel's launch schedule without reading
                          the device
+      parent_host     -> parent_static as an int32 CPU tensor, built
+                         once: the walk reads the tree there, without a
+                         sync
     """
 
     filterid: torch.Tensor     # (P, M) int32
@@ -61,6 +65,10 @@ class PackedComponent:
     aliased: bool = False
     message_fids: Tuple[Tuple[int, ...], ...] = ()
     parent_static: Tuple[int, ...] = ()
+
+    @functools.cached_property
+    def parent_host(self) -> torch.Tensor:
+        return torch.tensor(self.parent_static, dtype=torch.int32)
 
     @property
     def nparts(self) -> int:

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from partsbaseddetector_tpu_torch.models.part_tree import PackedComponent
 from partsbaseddetector_tpu_torch.ops.common import cv_round
-from partsbaseddetector_tpu_torch.ops.dp import DPResult
+from partsbaseddetector_tpu_torch.ops.dp import DPResult, _inbounds
 from partsbaseddetector_tpu_torch.ops.walk import walk_tree, walk_tree_plain
 from partsbaseddetector_tpu_torch.utils import profiling
 
@@ -81,11 +81,9 @@ def _root_seeds(rootv: torch.Tensor, rooti: torch.Tensor, thresh, k: int,
     L, H, W = rootv.shape
     dev = rootv.device
     if true_size is not None:
-        ts = torch.as_tensor(true_size, device=dev)
-        inb = ((torch.arange(H, device=dev)[:, None] < ts[:, 0, None, None])
-               & (torch.arange(W, device=dev)[None, :]
-                  < ts[:, 1, None, None]))
-        rootv = torch.where(inb, rootv, -torch.inf)
+        rootv = torch.where(
+            _inbounds(H, W, torch.as_tensor(true_size, device=dev)), rootv,
+            -torch.inf)
     k_eff = min(k, H * W)
     flat = rootv.reshape(L, H * W)
     # lax.top_k ranks floats in their total order (-0.0 below +0.0):
@@ -154,6 +152,8 @@ def backtrack_levels(res: DPResult, comp: PackedComponent,
     """Backtracking over a leading levels axis, returning a flat
     Candidates of capacity L*k.
 
+    parent_static: the component's tree, comp.parent_static (the JAX
+    package's signature; the walk reads comp.parent_host).
     walk_impl: "cuda" (the fused walk kernel, ops/walk.walk_tree — on a
     CPU tensor it runs its plain version), "torch" (the plain walk,
     ops/walk.walk_tree_plain) or "auto" ("cuda" on a CUDA device,
@@ -170,8 +170,8 @@ def backtrack_levels(res: DPResult, comp: PackedComponent,
                                           true_sizes)
     X, Y, Mm = WALKS[walk_impl](
         res.scores, res.tmp, xs, ys, mv, comp.defw,
-        comp.anchor.to(torch.float32), comp.bias,
-        torch.tensor(parent_static, dtype=torch.int32), compose)
+        comp.anchor.to(torch.float32), comp.bias, comp.parent_host,
+        compose)
     return _walked_candidates(X, Y, Mm, topv, valid, comp, scales, k,
                               component_index, levels, comp.nparts)
 

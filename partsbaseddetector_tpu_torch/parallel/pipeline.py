@@ -31,18 +31,18 @@ from typing import Optional
 
 import torch
 
-from partsbaseddetector_tpu_torch.infer import multires as multires_mod
-from partsbaseddetector_tpu_torch.infer.detector import (
-    Detector, _stage12, _stage34, device_depths, device_frames,
-    device_masks)
+from partsbaseddetector_tpu_torch.infer.detector import (check_depth,
+                                                         device_masks,
+                                                         pyramid_pdfs, upload)
+from partsbaseddetector_tpu_torch.infer.multires import detector_for
 from partsbaseddetector_tpu_torch.models.part_tree import pack_model
 from partsbaseddetector_tpu_torch.models.schema import PartsModel
 from partsbaseddetector_tpu_torch.ops import argmax as argmax_ops
 from partsbaseddetector_tpu_torch.ops.common import resolve_device
-from partsbaseddetector_tpu_torch.parallel.sharded import _facade
+from partsbaseddetector_tpu_torch.parallel.sharded import ParallelFacade
 
 
-class PipelinedDetector:
+class PipelinedDetector(ParallelFacade):
     """Two-device cross-stage pipelined detector.
 
     >>> pdet = PipelinedDetector(model, front="cuda:0", back="cuda:1")
@@ -57,18 +57,12 @@ class PipelinedDetector:
         self.model = model
         self.front = resolve_device(front)
         self.back = resolve_device(back)
-        self.multires = model.max_scale() > 0
-        # the back half's facade: its checks, packed model and plans
-        self._det = _facade(model, self.back, k_per_level=k_per_level,
-                            compose=compose, dp_split=dp_split,
-                            conv_engine=conv_engine,
-                            depth_prune=depth_prune, walk_impl=walk_impl)
-        self.k_per_level = self._det.k_per_level
-        self.compose = compose
-        self.conv_engine = self._det.conv_engine
-        self.depth_prune = depth_prune
-        self.dp_split = getattr(self._det, "dp_split", None)
-        self.walk_impl = getattr(self._det, "walk_impl", "torch")
+        # the back half's facade: its checks, packed model, plans and
+        # stages 3-4
+        self._det = detector_for(
+            model, k_per_level=k_per_level, compose=compose,
+            dp_split=dp_split, depth_prune=depth_prune,
+            conv_engine=conv_engine, walk_impl=walk_impl, device=self.back)
         self.packed_back = self._det.packed
         # the front half convolves: it needs the bank
         self.packed_front = (self.packed_back if self.front == self.back
@@ -76,9 +70,6 @@ class PipelinedDetector:
         cuda = self.front.type == "cuda" and self.back.type == "cuda"
         self._s_front = torch.cuda.Stream(self.front) if cuda else None
         self._s_back = torch.cuda.Stream(self.back) if cuda else None
-
-    def plan_for(self, imshape):
-        return self._det.plan_for(imshape)
 
     @staticmethod
     def _on(stream):
@@ -92,18 +83,13 @@ class PipelinedDetector:
     def _dispatch(self, image, depth=None, part_masks=None):
         """Enqueue one frame on both halves; returns its Candidates (on
         the back device) and the back stream's event after them."""
-        if depth is not None and self.depth_prune is None:
-            raise ValueError(
-                "depth map passed but this detector has no depth_prune "
-                "config (matches Detector behavior)")
+        check_depth(depth, self.depth_prune)
         with self._on(self._s_front):
-            frame = device_frames(image, 3, self.front)
-            plan = self.plan_for(frame.shape[:2])
-            d = None if depth is None else \
-                device_depths(depth, self.front)[None]
-            per_bucket = _stage12(frame[None], self.packed_front, plan,
-                                  self.conv_engine, depth=d,
-                                  depth_cfg=self.depth_prune)
+            frames, depths, _ = upload(image, 3, self.front, depth)
+            per_bucket = pyramid_pdfs(
+                frames, self.packed_front, self.plan_for(frames.shape[1:3]),
+                self.conv_engine, depths=depths,
+                depth_prune=self.depth_prune)
             if self.back != self.front:
                 # the copy runs on the front stream (the source's)
                 per_bucket = [(b,) + tuple(
@@ -121,15 +107,8 @@ class PipelinedDetector:
                         t.record_stream(self._s_back)
             masks = None if part_masks is None else \
                 device_masks(part_masks, self.back)
-            if self.multires:
-                cands = multires_mod._multires_stage34(
-                    [(b, p[0], t, s) for b, p, t, s in per_bucket],
-                    self.packed_back, self.k_per_level, masks)
-            else:
-                cands = _stage34(per_bucket, self.packed_back,
-                                 self.k_per_level, self.compose,
-                                 self.dp_split, self.walk_impl,
-                                 part_masks=masks).map(lambda x: x[0])
+            cands = self._det._stage34(per_bucket, masks).map(
+                lambda x: x[0])
             done = None
             if self._s_back is not None:
                 done = torch.cuda.Event()
@@ -165,10 +144,6 @@ class PipelinedDetector:
 
         depths: optional per-frame metric depth maps (needs
         depth_prune); pruning runs on the front, per frame."""
-        if depths is not None and self.depth_prune is None:
-            raise ValueError(
-                "depth maps passed but this detector has no "
-                "depth_prune config (matches Detector behavior)")
         pending = deque()
         for i, f in enumerate(frames):
             pending.append(self._dispatch(
@@ -178,6 +153,9 @@ class PipelinedDetector:
         while pending:
             yield self._collect(*pending.popleft())
 
-    def detect(self, image, max_detections: Optional[int] = None):
-        return Detector.candidates_to_detections(
-            self.detect_raw(image), max_detections)
+    def detect_batch_raw(self, images, depths=None
+                         ) -> argmax_ops.Candidates:
+        """A (B, H, W[, 3]) stack of frames through stream(), their
+        Candidates stacked to (B, ...)."""
+        return argmax_ops.stack_candidates(list(self.stream(images,
+                                                            depths=depths)))

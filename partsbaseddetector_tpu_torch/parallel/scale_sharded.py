@@ -14,9 +14,10 @@ for its levels.  At the end the Candidates are all-gathered over
 
 Single-resolution models split each bucket by its own length: a
 bucket's L levels are padded to a multiple of the scale size with NEG
-response maps of true size zero, which give only invalid candidates,
-and the padding is dropped after the gather; the result equals
-Detector(dp_split=1)'s, capacity included.
+response maps of true size zero (only the real levels are convolved),
+which give only invalid candidates, and the padding is dropped after
+the gather; the result equals Detector(dp_split=1)'s, capacity
+included.
 
 Multi-resolution models split every bucket by ONE slot range.  A slot
 is a level's index inside its octave bucket, and a root at slot i of
@@ -40,21 +41,21 @@ from __future__ import annotations
 
 import dataclasses
 import types
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import torch
 
 from partsbaseddetector_tpu_torch.infer.detector import (
-    Detector, _depth_bad_mask, _ladder_hog, device_depths, device_frames,
-    device_masks, dp_backtrack_bucket)
-from partsbaseddetector_tpu_torch.infer.multires import _multires_walks
+    StageTimer, dp_backtrack_bucket, frame_by_frame, pyramid_pdfs)
+from partsbaseddetector_tpu_torch.infer.multires import (_multires_walks,
+                                                         detector_for)
 from partsbaseddetector_tpu_torch.models.schema import PartsModel
 from partsbaseddetector_tpu_torch.ops import argmax as argmax_ops
 from partsbaseddetector_tpu_torch.ops.common import NEG
-from partsbaseddetector_tpu_torch.ops.conv import CONV_ENGINES
 from partsbaseddetector_tpu_torch.parallel.mesh import Mesh, make_mesh
 from partsbaseddetector_tpu_torch.parallel.sharded import (
-    _facade, check_mesh, gather_candidates, sharded_packed)
+    ParallelFacade, check_mesh, gather_candidates, sharded_packed)
+from partsbaseddetector_tpu_torch.utils import profiling
 
 
 def make_scale_mesh(shape=None, device=None) -> Mesh:
@@ -83,7 +84,7 @@ def _invalid_candidates(n: int, nparts: int, device
         loc=zeros(n, nparts, 3))
 
 
-class ScaleShardedDetector:
+class ScaleShardedDetector(ParallelFacade):
     """Single-image detector with pyramid levels sharded over ranks.
 
     >>> mesh = make_scale_mesh((4, 2))      # 8 ranks, one card each
@@ -92,10 +93,10 @@ class ScaleShardedDetector:
 
     A single-resolution model splits each octave bucket's levels by the
     bucket's own length, and gives Detector(dp_split=1)'s Candidates; a
-    multi-resolution one (max_scale() > 0) splits the slots of every
-    bucket by one common range (local_slot_range), and gives
-    MultiResDetector's.  Either way each rank convolves, runs the DP and
-    walks only its own levels.
+    multi-resolution one splits the slots of every bucket by one common
+    range (local_slot_range), and gives MultiResDetector's.  Either way
+    each rank convolves, runs the DP and walks only its own levels.  A
+    batch's frames run one at a time.
     """
 
     def __init__(self, model: PartsModel, mesh: Mesh,
@@ -104,24 +105,17 @@ class ScaleShardedDetector:
                  walk_impl: str = "auto"):
         self.model = model
         self.mesh = check_mesh(mesh, ("scale", "filter"))
-        self.multires = model.max_scale() > 0
         # one dp group per bucket: a rank's levels are one batch
-        self._det = _facade(model, mesh.device, k_per_level=k_per_level,
-                            compose=compose, dp_split=1,
-                            conv_engine=conv_engine,
-                            depth_prune=depth_prune, walk_impl=walk_impl)
-        self.device = self._det.device
-        self.k_per_level = self._det.k_per_level
-        self.compose = compose
-        self.conv_engine = self._det.conv_engine
-        self.depth_prune = depth_prune
-        self.walk_impl = getattr(self._det, "walk_impl", "torch")
+        self._det = detector_for(
+            model, k_per_level=k_per_level, compose=compose, dp_split=1,
+            depth_prune=depth_prune, conv_engine=conv_engine,
+            walk_impl=walk_impl, device=mesh.device)
         self.packed = sharded_packed(self._det.packed, mesh)
         self._gather = (mesh.gather_filters if mesh.shape["filter"] > 1
                         else None)
-
-    def plan_for(self, imshape):
-        return self._det.plan_for(imshape)
+        # the facade's program decides the split rule
+        self._split = (self._slot_split if self._det.multires
+                       else self._level_split)
 
     def _slots_per_rank(self, plan) -> int:
         """C = ceil(max_b L_b / nscale), the slots a rank owns of every
@@ -148,57 +142,47 @@ class ScaleShardedDetector:
         r = self.mesh.index("scale")
         return min(r * C, n), min((r + 1) * C, n)
 
-    def _multires_local(self, frame: torch.Tensor, depth=None,
-                        part_masks=None) -> argmax_ops.Candidates:
-        """This rank's part of a multi-resolution (H, W, C) frame: its
-        slot range of every bucket through stages 1-4, each (root
-        bucket, component) segment padded to C*k with invalid
-        candidates.  depth (dh, dw) or None; part_masks per bucket
-        (L, P, fh, fw) or None."""
-        packed = self.packed
-        plan = self.plan_for(frame.shape[:2])
-        a, b = self.local_slot_range(frame.shape[:2])
-        conv = CONV_ENGINES[self.conv_engine]
-        dev = frame.device
-        per_bucket = []
-        masks = None if part_masks is None else []
-        for bucket, _, feats in _ladder_hog(frame[None], plan,
-                                            packed.norient, packed.flen):
-            L = len(bucket.levels)
-            lo, hi = min(a, L), min(b, L)
-            mine = bucket.levels[lo:hi]
-            tsizes = torch.tensor([lv.featsize for lv in mine],
-                                  dtype=torch.int32,
-                                  device=dev).reshape(-1, 2)
-            scales = torch.tensor([lv.scale for lv in mine],
-                                  dtype=torch.float32, device=dev)
-            pdfs = None
-            if mine:        # the same on every rank of a filter group
-                pdfs = conv(feats[lo:hi], packed.bank, true_size=tsizes)
-                if self._gather is not None:
-                    pdfs = self._gather(pdfs)
-                if depth is not None and self.depth_prune is not None:
-                    bad = _depth_bad_mask(depth[None], bucket,
-                                          self.depth_prune)[0, lo:hi]
-                    pdfs.masked_fill_(bad[..., None], NEG)
-            per_bucket.append((bucket, pdfs, tsizes, scales))
-            if masks is not None:
-                masks.append(part_masks[bucket.octave][lo:hi])
-        n = self._slots_per_rank(plan) * self.k_per_level
+    def _slot_split(self, frames: torch.Tensor, depths=None,
+                    part_masks=None, stage: StageTimer = profiling.stage
+                    ) -> argmax_ops.Candidates:
+        """One multi-resolution (1, H, W, C) frame, slots split over
+        ``scale``: this rank's slot range of every bucket through stages
+        1-4, each (root bucket, component) segment padded to C*k with
+        invalid candidates, then the all-gather over ``scale`` and the
+        merge; the same Candidates (1, ...) on every rank.  depths
+        (1, dh, dw) or None; part_masks per bucket (L, P, fh, fw) or
+        None."""
+        packed, k = self.packed, self.k_per_level
+        plan = self.plan_for(frames.shape[1:3])
+        a, b = self.local_slot_range(frames.shape[1:3])
+        # the same on every rank of a filter group
+        slots = [(min(a, len(bk.levels)), min(b, len(bk.levels)))
+                 for bk in plan.buckets]
+        per_bucket = [(bk, None if p is None else p[0], t, s)
+                      for bk, p, t, s in pyramid_pdfs(
+                          frames, packed, plan, self.conv_engine, stage,
+                          self._gather, depths, self.depth_prune, slots)]
+        masks = None if part_masks is None else [
+            part_masks[bk.octave][lo:hi]
+            for bk, (lo, hi) in zip(plan.buckets, slots)]
+        n = self._slots_per_rank(plan) * k
         segments = []
-        for c, cands in _multires_walks(per_bucket, packed,
-                                        self.k_per_level, masks, slot0=a):
+        for c, cands in _multires_walks(per_bucket, packed, k, masks,
+                                        slot0=a):
             have = 0 if cands is None else cands.capacity
-            pad = _invalid_candidates(n - have, packed.maxparts, dev)
+            pad = _invalid_candidates(n - have, packed.maxparts,
+                                      frames.device)
             segments.append(pad if cands is None else
                             argmax_ops.concat_candidates([cands, pad]))
-        return argmax_ops.concat_candidates(segments)
+        local = argmax_ops.concat_candidates(segments)
+        return self._multires_merge(gather_candidates(
+            local.map(lambda x: x[None]), self.mesh, "scale", 1), plan)
 
     def _multires_merge(self, gathered: argmax_ops.Candidates, plan
                         ) -> argmax_ops.Candidates:
-        """The ranks' _multires_local results, concatenated in scale
-        order, to MultiResDetector's Candidates: each rank's real slots
-        of each (root bucket, component) segment, in (bucket,
+        """The ranks' _slot_split segments (1, ...), concatenated in
+        scale order, to MultiResDetector's Candidates: each rank's real
+        slots of each (root bucket, component) segment, in (bucket,
         component, rank) order — level order within a segment — then
         one stable sort."""
         packed, k = self.packed, self.k_per_level
@@ -216,114 +200,89 @@ class ScaleShardedDetector:
                 idx.append(torch.arange(start, start + keep))
         order = torch.cat(idx).to(gathered.score.device)
         return argmax_ops.sort_candidates(
-            gathered.map(lambda x: x.index_select(0, order)))
+            gathered.map(lambda x: x.index_select(1, order)))
 
-    def _multires_program(self, frame: torch.Tensor, depth=None,
-                          part_masks=None) -> argmax_ops.Candidates:
-        """One multi-resolution (H, W, C) frame, slots split over
-        ``scale``; the same Candidates on every rank."""
-        return self._multires_merge(
-            gather_candidates(self._multires_local(frame, depth,
-                                                   part_masks),
-                              self.mesh, "scale", 0),
-            self.plan_for(frame.shape[:2]))
-
-    def _program(self, frame: torch.Tensor, depth=None, part_masks=None
-                 ) -> argmax_ops.Candidates:
-        """One (1, H, W, C) frame; depth (1, dh, dw) or None; part_masks
-        per bucket (L, P, fh, fw) or None."""
+    def _level_split(self, frames: torch.Tensor, depths=None,
+                     part_masks=None, stage: StageTimer = profiling.stage
+                     ) -> argmax_ops.Candidates:
+        """One single-resolution (1, H, W, C) frame, each bucket's levels
+        split over ``scale``; depths (1, dh, dw) or None; part_masks per
+        bucket (L, P, fh, fw) or None."""
         packed, k = self.packed, self.k_per_level
-        plan = self.plan_for(frame.shape[1:3])
+        plan = self.plan_for(frames.shape[1:3])
         nscale, s = self.mesh.shape["scale"], self.mesh.index("scale")
-        conv = CONV_ENGINES[self.conv_engine]
-        dev = frame.device
+        shares = [-(-len(bk.levels) // nscale) for bk in plan.buckets]
+        real = [(min(s * n, len(bk.levels)),
+                 min((s + 1) * n, len(bk.levels)))
+                for bk, n in zip(plan.buckets, shares)]
+        nfilters = packed.nfilters * self.mesh.shape["filter"]
         local: List[argmax_ops.Candidates] = []
-        counts = []                 # (levels, padded levels) per bucket
-        for bucket, _, feats in _ladder_hog(frame, plan, packed.norient,
-                                            packed.flen):
+        for (bucket, pdfs, tsizes, scales), (lo, hi), n in zip(
+                pyramid_pdfs(frames, packed, plan, self.conv_engine, stage,
+                             self._gather, depths, self.depth_prune, real),
+                real, shares):
             L = len(bucket.levels)
-            Ll = -(-L // nscale)
-            pad = Ll * nscale - L
-            counts.append((L, Ll * nscale))
-            lo, hi = s * Ll, (s + 1) * Ll
+            pad = n - (hi - lo)         # padded levels of this rank's share
+            if pad:
+                neg = torch.full((1, pad) + tuple(bucket.feat_pad)
+                                 + (nfilters,), NEG, device=frames.device)
+                pdfs = neg if pdfs is None else torch.cat([pdfs, neg], 1)
             levels = list(bucket.levels) + [
                 dataclasses.replace(bucket.levels[-1],
                                     index=bucket.levels[0].index + L + i)
-                for i in range(pad)]
-            tsizes = torch.tensor(
-                [lv.featsize for lv in bucket.levels] + [(0, 0)] * pad,
-                dtype=torch.int32, device=dev)[lo:hi]
-            scales = torch.tensor(
-                [lv.scale for lv in bucket.levels] + [1.0] * pad,
-                dtype=torch.float32, device=dev)[lo:hi]
-            pdfs = conv(_pad_levels(feats, pad, 0.0)[lo:hi], packed.bank,
-                        true_size=tsizes)
-            if self._gather is not None:
-                pdfs = self._gather(pdfs)
-            nreal = min(max(L - lo, 0), Ll)
-            pdfs[nreal:] = NEG                      # the padded levels
-            if depth is not None and self.depth_prune is not None:
-                bad = _depth_bad_mask(depth, bucket, self.depth_prune)[0]
-                bad = _pad_levels(bad, pad, False)[lo:hi]
-                pdfs.masked_fill_(bad[..., None], NEG)
+                for i in range(n * nscale - L)]
             bmask = None
             if part_masks is not None:
-                bmask = _pad_levels(part_masks[bucket.octave], pad,
-                                    False)[lo:hi]
+                bmask = _pad_levels(part_masks[bucket.octave][lo:hi], pad,
+                                    False)
             local.extend(dp_backtrack_bucket(
-                types.SimpleNamespace(levels=levels[lo:hi]), pdfs[None],
-                tsizes, scales, packed, k, self.compose, 1,
-                self.walk_impl, bmask))
+                types.SimpleNamespace(levels=levels[s * n:(s + 1) * n]),
+                pdfs, _pad_levels(tsizes, pad, 0),
+                _pad_levels(scales, pad, 1.0), packed, k, self.compose, 1,
+                self.walk_impl, bmask, stage))
         ncomp = len(packed.components)
         # gathered: rank-major blocks of this rank's (bucket, component)
         # segments; reorder them bucket-major, levels ascending, and
         # drop the padding
         merged = gather_candidates(
             argmax_ops.concat_candidates(local), self.mesh, "scale", 1)
-        per_rank = sum(Lp // nscale for _, Lp in counts) * k * ncomp
+        per_rank = sum(shares) * k * ncomp
         idx, off = [], 0
-        for L, Lp in counts:
-            seg = Lp // nscale * k
+        for bucket, n in zip(plan.buckets, shares):
+            seg = n * k
             for c in range(ncomp):
                 for r in range(nscale):
                     start = r * per_rank + off + c * seg
-                    keep = min(max(L * k - r * seg, 0), seg)
+                    keep = min(max(len(bucket.levels) * k - r * seg, 0), seg)
                     idx.append(torch.arange(start, start + keep))
             off += seg * ncomp
-        order = torch.cat(idx).to(dev)
+        order = torch.cat(idx).to(frames.device)
         return argmax_ops.sort_candidates(
             merged.map(lambda x: x.index_select(1, order)))
+
+    def _program(self, frames, depths=None, part_masks=None,
+                 stage: StageTimer = profiling.stage
+                 ) -> argmax_ops.Candidates:
+        return frame_by_frame(self._split, frames, depths, part_masks,
+                              stage)
 
     def detect_raw(self, image, depth=None) -> argmax_ops.Candidates:
         """Detect in one (H, W[, 3]) frame.  depth: optional (dh, dw)
         metric depth map — with a ``depth_prune`` config, responses at
         implausible depths are masked before the DP (Detector.detect_raw's
         semantics)."""
-        if depth is not None and self.depth_prune is None:
-            raise ValueError(
-                "depth map passed but this detector has no depth_prune "
-                "config (matches Detector behavior)")
-        return self._run(image, depth=depth)
+        return self._det._run(image, 3, depths=depth,
+                              program=self._program).map(lambda x: x[0])
+
+    def detect_batch_raw(self, images, depths=None
+                         ) -> argmax_ops.Candidates:
+        """Detect in a (B, H, W[, 3]) stack of frames, one at a time."""
+        return self._det._run(images, 4, depths=depths,
+                              program=self._program)
 
     def detect_masked_raw(self, image, part_masks
                           ) -> argmax_ops.Candidates:
         """Latent-positive masked search, levels sharded (the mask
         format of Detector.detect_masked_raw)."""
-        return self._run(image, part_masks=part_masks)
-
-    def _run(self, image, depth=None, part_masks=None):
-        frame = device_frames(image, 3, self.device)
-        if depth is not None:
-            depth = device_depths(depth, self.device)
-        if part_masks is not None:
-            part_masks = device_masks(part_masks, self.device)
-        if self.multires:
-            return self._multires_program(frame, depth, part_masks)
-        out = self._program(frame[None],
-                            None if depth is None else depth[None],
-                            part_masks)
-        return out.map(lambda x: x[0])
-
-    def detect(self, image, max_detections: Optional[int] = None):
-        return Detector.candidates_to_detections(
-            self.detect_raw(image), max_detections)
+        return self._det._run(image, 3, part_masks=part_masks,
+                              program=self._program).map(lambda x: x[0])

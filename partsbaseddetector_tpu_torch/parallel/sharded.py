@@ -18,19 +18,17 @@ push_back, src/DynamicProgram.cpp:246-251).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from partsbaseddetector_tpu_torch.infer.detector import (
-    Detector, _detect_program, device_depths, device_frames, device_masks)
-from partsbaseddetector_tpu_torch.infer.multires import (MultiResDetector,
-                                                         _multires_program)
+from partsbaseddetector_tpu_torch.infer.detector import Detector
+from partsbaseddetector_tpu_torch.infer.multires import detector_for
 from partsbaseddetector_tpu_torch.models.part_tree import PackedModel
 from partsbaseddetector_tpu_torch.models.schema import PartsModel
-from partsbaseddetector_tpu_torch.ops.argmax import (Candidates,
-                                                     stack_candidates)
+from partsbaseddetector_tpu_torch.ops.argmax import Candidates
 from partsbaseddetector_tpu_torch.parallel.mesh import Mesh
 
 
@@ -56,21 +54,6 @@ def sharded_packed(packed: PackedModel, mesh: Mesh) -> PackedModel:
         packed.bank, mesh.shape["filter"], mesh.index("filter")))
 
 
-def _facade(model: PartsModel, device, *, k_per_level, compose, dp_split,
-            conv_engine, depth_prune, walk_impl):
-    """The one-device facade whose checks, packing and plans a parallel
-    detector reuses: MultiResDetector for multi-resolution models (which
-    refuses shared filter ids within a component), else Detector."""
-    if model.max_scale() > 0:
-        return MultiResDetector(model, k_per_level=k_per_level,
-                                depth_prune=depth_prune,
-                                conv_engine=conv_engine, device=device)
-    return Detector(model, k_per_level=k_per_level, compose=compose,
-                    dp_split=dp_split, depth_prune=depth_prune,
-                    conv_engine=conv_engine, walk_impl=walk_impl,
-                    device=device)
-
-
 def check_mesh(mesh, axes) -> Mesh:
     """mesh, if it is a Mesh with these axes; else TypeError."""
     if not isinstance(mesh, Mesh) or tuple(mesh.axis_names) != axes:
@@ -86,7 +69,36 @@ def gather_candidates(c: Candidates, mesh: Mesh, axis: str, dim: int
     return c.map(lambda x: mesh.all_gather(x, axis, dim))
 
 
-class BatchDetector:
+def _held(name: str) -> property:
+    return property(lambda self: getattr(self._det, name),
+                    doc=f"The held facade's ``{name}``.")
+
+
+class ParallelFacade:
+    """What the parallel detectors share: each holds the one-device
+    facade of its model (infer/multires.detector_for, ``_det``), runs
+    that facade's input checks, upload and stages 3-4, and reads its
+    knobs from it (a multi-resolution facade has no compose, dp_split or
+    walk_impl)."""
+
+    device = _held("device")
+    k_per_level = _held("k_per_level")
+    conv_engine = _held("conv_engine")
+    depth_prune = _held("depth_prune")
+    multires = _held("multires")
+    compose = _held("compose")
+    dp_split = _held("dp_split")
+    walk_impl = _held("walk_impl")
+
+    def plan_for(self, imshape):
+        return self._det.plan_for(imshape)
+
+    def detect(self, image, max_detections: Optional[int] = None):
+        return Detector.candidates_to_detections(
+            self.detect_raw(image), max_detections)
+
+
+class BatchDetector(ParallelFacade):
     """Batched, mesh-sharded detector.
 
     >>> mesh = make_mesh((4, 2))             # 8 ranks, one card each
@@ -95,7 +107,8 @@ class BatchDetector:
 
     Every rank calls it with the same frames and gets the whole batch's
     Candidates; ``detect_batch_distributed`` takes each rank's own frames
-    instead.  Multi-resolution models run the MultiResDetector program
+    instead, and ``detect_raw`` / ``detect_batch_raw`` any number of
+    frames.  Multi-resolution models run the MultiResDetector program
     (one frame at a time, the plain walk), with the same sharding."""
 
     def __init__(self, model: PartsModel, mesh: Mesh,
@@ -105,25 +118,15 @@ class BatchDetector:
                  walk_impl: str = "auto"):
         self.model = model
         self.mesh = check_mesh(mesh, ("data", "filter"))
-        self.multires = model.max_scale() > 0
-        self._det = _facade(model, mesh.device, k_per_level=k_per_level,
-                            compose=compose, dp_split=dp_split,
-                            conv_engine=conv_engine,
-                            depth_prune=depth_prune, walk_impl=walk_impl)
-        self.device = self._det.device
-        self.k_per_level = self._det.k_per_level
-        self.compose = compose
-        self.conv_engine = self._det.conv_engine
-        self.depth_prune = depth_prune
-        self.dp_split = getattr(self._det, "dp_split", None)
-        self.walk_impl = getattr(self._det, "walk_impl", "torch")
+        self._det = detector_for(
+            model, k_per_level=k_per_level, compose=compose,
+            dp_split=dp_split, depth_prune=depth_prune,
+            conv_engine=conv_engine, walk_impl=walk_impl,
+            device=mesh.device)
         # this rank's filter shard; the rest of the model is whole
         self.packed = sharded_packed(self._det.packed, mesh)
         self._gather = (mesh.gather_filters if mesh.shape["filter"] > 1
                         else None)
-
-    def plan_for(self, imshape):
-        return self._det.plan_for(imshape)
 
     def _check_batch(self, images) -> int:
         B = len(images)
@@ -150,33 +153,13 @@ class BatchDetector:
 
     def _run_local(self, images, depths=None, part_masks=None
                    ) -> Candidates:
-        """This rank's frames through the program: (B_local, ...)."""
-        det = self._det
-        if depths is not None and self.depth_prune is None:
-            raise ValueError("construct BatchDetector with "
-                             "depth_prune=DepthPrune(...)")
-        frames = device_frames(images, 4, self.device)
-        if frames.ndim != 4:
-            raise ValueError("BatchDetector expects (B, H, W, 3) images, "
-                             f"got shape {tuple(frames.shape)}")
-        plan = det.plan_for(frames.shape[1:3])
-        if depths is not None:
-            depths = device_depths(depths, self.device)
-        if part_masks is not None:
-            part_masks = device_masks(part_masks, self.device)
-        if not self.multires:
-            return _detect_program(
-                frames, self.packed, plan, self.k_per_level, self.compose,
-                self.dp_split, self.walk_impl, depth=depths,
-                depth_cfg=self.depth_prune, part_masks=part_masks,
-                conv_engine=self.conv_engine, pdfs_transform=self._gather)
-        return stack_candidates([_multires_program(
-            frames[b], self.packed, plan, self.k_per_level,
-            depth=None if depths is None else depths[b],
-            depth_cfg=self.depth_prune, conv_engine=self.conv_engine,
-            part_masks=None if part_masks is None else
-            [m[b] for m in part_masks], pdfs_transform=self._gather)
-            for b in range(frames.shape[0])])
+        """This rank's frames through the facade's program with this
+        rank's filter shard: (B_local, ...)."""
+        return self._det._run(images, 4, depths=depths,
+                              part_masks=part_masks,
+                              program=functools.partial(
+                                  self._det._program, packed=self.packed,
+                                  pdfs_transform=self._gather))
 
     def detect_batch(self, images, depths=None) -> Candidates:
         """images: (B, H, W[, 3]), the same on every rank; B must divide
@@ -214,3 +197,27 @@ class BatchDetector:
                              "(B_local, H, W, 3) images")
         return gather_candidates(self._run_local(local_images),
                                  self.mesh, "data", 0)
+
+    def detect_raw(self, image, depth=None) -> Candidates:
+        """One (H, W[, 3]) frame, replicated over the data axis, result
+        0 kept: a single frame on a mesh pays the replication;
+        detect_batch_raw is the mesh's throughput path."""
+        return self.detect_batch_raw(
+            np.asarray(image)[None],
+            None if depth is None else np.asarray(depth)[None]).map(
+                lambda x: x[0])
+
+    def detect_batch_raw(self, images, depths=None) -> Candidates:
+        """Any (B, H, W[, 3]) stack of frames: the last frame repeated up
+        to a multiple of the data axis, the padding's results dropped."""
+        ndata = self.mesh.shape["data"]
+        B = len(images)
+        pad = (-B) % ndata
+        if pad:      # repeat the last frame up to a data-axis multiple
+            images = np.concatenate(
+                [images, np.repeat(np.asarray(images)[-1:], pad, 0)])
+            if depths is not None:
+                depths = np.concatenate(
+                    [depths, np.repeat(np.asarray(depths)[-1:], pad, 0)])
+        out = self.detect_batch(images, depths=depths)
+        return out.map(lambda x: x[:B]) if pad else out

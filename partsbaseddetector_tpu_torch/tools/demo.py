@@ -81,8 +81,6 @@ def main(argv=None) -> int:
     def _axes(text):
         return tuple(int(x) for x in text.split(","))
 
-    detect_one = None
-
     if args.scale_mesh is not None:
         from partsbaseddetector_tpu_torch.parallel.scale_sharded import (
             ScaleShardedDetector, make_scale_mesh)
@@ -98,27 +96,19 @@ def main(argv=None) -> int:
             model, make_mesh(_axes(args.mesh), device=args.device),
             k_per_level=args.k_per_level, conv_engine=args.conv_engine,
             walk_impl=args.walk_impl, dp_split=args.dp_split)
-        ndata = det.mesh.shape["data"]
         print(f"serving on mesh {args.mesh} "
               f"({'multires program' if det.multires else 'sharded'})")
-
-        def detect_one(image):
-            b = np.repeat(image[None], ndata, 0)
-            return det.detect_batch(b).map(lambda x: x[0])
-    elif model.max_scale() > 0:
-        from partsbaseddetector_tpu_torch.infer.multires import \
-            MultiResDetector
-        det = MultiResDetector(model, k_per_level=args.k_per_level,
-                               conv_engine=args.conv_engine,
-                               device=args.device)
-        print("multi-resolution model: using MultiResDetector")
     else:
-        det = Detector(model, k_per_level=args.k_per_level,
-                       conv_engine=args.conv_engine,
-                       walk_impl=args.walk_impl, dp_split=args.dp_split,
-                       device=args.device)
+        from partsbaseddetector_tpu_torch.infer.multires import \
+            detector_for
+        det = detector_for(model, k_per_level=args.k_per_level,
+                           conv_engine=args.conv_engine,
+                           walk_impl=args.walk_impl, dp_split=args.dp_split,
+                           device=args.device)
+        if det.multires:
+            print("multi-resolution model: using MultiResDetector")
     t0 = time.time()
-    cands = (detect_one or det.detect_raw)(im)
+    cands = det.detect_raw(im)
     if args.nms is not None:
         from partsbaseddetector_tpu_torch.ops.nms import paint_nms
         cands = paint_nms(cands, im.shape[:2], args.nms)

@@ -43,6 +43,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from partsbaseddetector_tpu_torch.infer.detector import Detector
+from partsbaseddetector_tpu_torch.infer.multires import detector_for
 from partsbaseddetector_tpu_torch.models.schema import PartsModel
 from partsbaseddetector_tpu_torch.models.npzio import load_npz, save_npz
 from partsbaseddetector_tpu_torch.ops.common import resolve_device
@@ -358,18 +359,14 @@ def train_multi_component(name: str,
 
 
 def _latent_detector(model: PartsModel, k_per_level: int, device=None):
-    """Detector for latent search: multi-resolution models route to
-    MultiResDetector (whose walk already uses the Matlab composition
-    training needs — shiftdt.cc:97-111; plain torch on every device);
-    single-resolution models use Detector(compose="correct") (rationale
-    in latent_train), whose walk is the CUDA kernel on a card."""
-    if model.max_scale() > 0:
-        from partsbaseddetector_tpu_torch.infer.multires import \
-            MultiResDetector
-        return MultiResDetector(model, k_per_level=k_per_level,
-                                device=device)
-    return Detector(model, k_per_level=k_per_level, compose="correct",
-                    device=device)
+    """Detector for latent search (infer/multires.detector_for):
+    multi-resolution models get MultiResDetector (whose walk already
+    uses the Matlab composition training needs — shiftdt.cc:97-111;
+    plain torch on every device); single-resolution models use
+    Detector(compose="correct") (rationale in latent_train), whose walk
+    is the CUDA kernel on a card."""
+    return detector_for(model, k_per_level=k_per_level, compose="correct",
+                        device=device)
 
 
 def latent_train(model: PartsModel,

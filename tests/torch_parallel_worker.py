@@ -31,7 +31,7 @@ def scale_multires(shape, out) -> None:
     from partsbaseddetector_tpu_torch.infer import multires
     from partsbaseddetector_tpu_torch.infer.detector import DepthPrune
     from partsbaseddetector_tpu_torch.models import synthetic
-    from partsbaseddetector_tpu_torch.parallel import scale_sharded
+    from partsbaseddetector_tpu_torch.ops import conv as conv_ops
     from partsbaseddetector_tpu_torch.parallel.scale_sharded import (
         ScaleShardedDetector, make_scale_mesh)
 
@@ -56,7 +56,7 @@ def scale_multires(shape, out) -> None:
     # what each stage of the sharded detector ran on: conv batch sizes
     # per bucket, DP level counts and walked levels per root segment
     ran = {"conv": [], "dp": [], "walk": []}
-    conv, dp, walk = (scale_sharded.CONV_ENGINES["spatial"],
+    conv, dp, walk = (conv_ops.CONV_ENGINES["spatial"],
                       multires._dp_multires, multires._walk_levels)
 
     def conv_spy(feats, *a, **kw):
@@ -71,12 +71,12 @@ def scale_multires(shape, out) -> None:
         ran["walk"].append(a[-1].tolist())
         return walk(*a)
 
-    scale_sharded.CONV_ENGINES["spatial"] = conv_spy
+    conv_ops.CONV_ENGINES["spatial"] = conv_spy
     multires._dp_multires, multires._walk_levels = dp_spy, walk_spy
     try:
         got = sdet.detect_raw(im)
     finally:
-        scale_sharded.CONV_ENGINES["spatial"] = conv
+        conv_ops.CONV_ENGINES["spatial"] = conv
         multires._dp_multires, multires._walk_levels = dp, walk
     out["ran"] = ran
     out["slots"] = list(sdet.local_slot_range(im.shape[:2]))
