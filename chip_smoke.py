@@ -84,7 +84,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      topic with planes removed on 2 frames; frames/s of process,
      process_batch and stream, the post stage's host ms per frame by
      step (the tracer's post.* and fetch spans around process_batch),
-     peak device memory and the messages published per topic;
+     peak device memory and the messages published per topic; the B=1
+     launches are read on the callback that captures the detector's
+     one-frame CUDA graph (its Python issues every launch once);
+ 8b. the one-frame CUDA graph (phase_graph): a B=1 detect_raw's first
+     call of a key eager, the second captured, the rest replayed, with
+     and without depth pruning: Candidates equal the eager program's on
+     all fields on 3 frames, again after update_model; captures and
+     replays counted; B=1 eager vs replayed ms; memory peaks;
   9. training on the card (the port's train_parts_model,
      device="cuda"): (1) the config of tests/test_train.py:202-227
      trained on the card and on the CPU: equal decisions (latent
@@ -1738,6 +1745,125 @@ def phase_serving(smi: str) -> dict:
     return {"serve": n8 // ndisp, "serve_single": n1}
 
 
+def graph_counts() -> tuple:
+    """The one-frame CUDA graph's captures and replays the port's tracer
+    has counted (it counts inside profiling.tracing())."""
+    from partsbaseddetector_tpu_torch.utils import profiling
+    c = profiling.TRACER.counters
+    return (c.get("detect.graph.captures", 0),
+            c.get("detect.graph.replays", 0))
+
+
+def peak_of(fn):
+    """(fn(), the device memory peak of the call over what was allocated
+    when it started, B, and the call's host ms to a synchronize)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, torch.cuda.max_memory_allocated() - base, ms
+
+
+def phase_graph(smi: str) -> None:
+    """8b. The one-frame CUDA graph (infer/detector.FrameGraph):
+    person-26 (thresh -1e9) on 4 seeded 640x480 RGB-D frames of phase
+    8's scenes, without and with a depth map (DepthPrune(0.4, 525,
+    0.5), the ROS cell's): detect_raw's first call of a key runs
+    eagerly, the second captures (one capture, one replay counted), the
+    next replay; replayed Candidates equal the eager program's (a
+    stage hook keeps detect_batch_raw eager) on all fields on 3 distinct
+    frames, and again after update_model to other weights (which drops
+    the graph); B=1 eager against replayed ms; the device memory peak
+    of an eager call, the capturing call and a replay."""
+    import contextlib
+    from partsbaseddetector_tpu_torch.infer.detector import (DepthPrune,
+                                                             Detector)
+    from partsbaseddetector_tpu_torch.models import synthetic
+    from partsbaseddetector_tpu_torch.utils import profiling
+
+    def no_stage(name):
+        return contextlib.nullcontext()
+
+    rgbs, depths_mm, _ = serve_scene(4, IMG, seed=21)
+    depths = [d.astype(np.float32) / 1000.0 for d in depths_mm]
+    models = []
+    for seed in (0, 1):
+        m = synthetic.person_like(seed=seed)
+        m.thresh = -1e9
+        models.append(m)
+    for prune in (None, DepthPrune(0.4, 525.0, 0.5)):
+        what = "graph, " + ("no depth" if prune is None else
+                            "depth pruned")
+        det = Detector(models[0], k_per_level=K, depth_prune=prune,
+                       device="cuda")
+
+        def depth(i):
+            return None if prune is None else depths[i]
+
+        def call(i):
+            return det.detect_raw(rgbs[i], depth=depth(i))
+
+        def eager(i):
+            d = None if prune is None else depths[i][None]
+            return det.detect_batch_raw(rgbs[i][None], d,
+                                        stage=no_stage).map(lambda x: x[0])
+
+        with profiling.tracing():
+            for weights in (0, 1):
+                if weights:
+                    det.update_model(models[1])
+                c0, r0 = graph_counts()
+                first, peak_eager, ms_eager = peak_of(lambda: call(3))
+                if graph_counts() != (c0, r0):
+                    raise RuntimeError(f"{what}: a first call of a key "
+                                       f"did not run eagerly")
+                held = torch.cuda.memory_allocated()
+                second, peak_capture, ms_capture = peak_of(lambda: call(3))
+                held = torch.cuda.memory_allocated() - held
+                if graph_counts() != (c0 + 1, r0 + 1):
+                    raise RuntimeError(f"{what}: the second call of a key "
+                                       f"did not capture and replay once: "
+                                       f"{graph_counts()} from {(c0, r0)}")
+                equal_candidates(second, first,
+                                 f"{what}, weights {weights}: the capturing "
+                                 f"call vs the eager first call")
+                got = []
+                for i in range(3):
+                    out, peak_replay, _ = peak_of(lambda: call(i))
+                    got.append(out)
+                if graph_counts() != (c0 + 1, r0 + 4):
+                    raise RuntimeError(f"{what}: replays counted "
+                                       f"{graph_counts()} from {(c0, r0)}")
+                if not got[0].valid.any():
+                    raise RuntimeError(f"{what}: no valid candidate")
+                for i in range(3):
+                    equal_candidates(got[i], eager(i),
+                                     f"{what}, weights {weights}, frame "
+                                     f"{i}: replayed vs eager")
+                log(f"{what}, weights {weights}: the key's first call "
+                    f"(eager) {ms_eager:.1f} ms, its second (capture and "
+                    f"replay) {ms_capture:.1f} ms, host clock to "
+                    f"synchronize")
+                log(f"{what}, weights {weights}: device memory peak over "
+                    f"what was held: eager call {peak_eager} B, capturing "
+                    f"call {peak_capture} B, replay {peak_replay} B; held "
+                    f"after the capture {held} B more than before it (the "
+                    f"graph's static inputs and Candidates, less the cuBLAS "
+                    f"workspaces it frees); {int(got[0].valid.sum())} "
+                    f"valid candidates on frame 0")
+        if got[0].score.data_ptr() == got[1].score.data_ptr():
+            raise RuntimeError(f"{what}: two replays' results share "
+                               f"storage")
+        eager_ms = wall_ms(lambda: eager(0), reps=7)[0]
+        graph_ms = wall_ms(lambda: call(0), reps=7)[0]
+        log(f"{what}: B=1 detect {eager_ms:.3f} ms eager, {graph_ms:.3f} ms "
+            f"replayed (median of 7 after a warm call, host clock to "
+            f"synchronize) [{smi}]")
+
+
 def serve_card_vs_cpu() -> None:
     """(5) person-26 at 120x160 through a StreamingDetector on the card
     and one on the CPU: the raw Candidates under the cross-engine
@@ -1844,8 +1970,9 @@ class TrainClock:
     and trainer._train_filter_svm (restored on exit), and the trainer's
     log lines stamped with their time (and echoed).  Each timed call ends
     in a synchronize on the card.  On a walk_impl="cuda" detector every
-    detect must launch the walk kernel once per dp group and component,
-    or the call raises."""
+    detect must launch the walk kernel once per dp group and component
+    (none when it replays the detector's one-frame CUDA graph, whose
+    launches counted at its capture), or the call raises."""
 
     def __init__(self, device: str):
         self.device = device
@@ -1877,13 +2004,19 @@ class TrainClock:
 
         def timed(*a, **kw):
             n0 = walk_launches()
+            g0 = graph_counts()
             t = time.perf_counter()
             out = orig(*a, **kw)
             clock._sync()
             dt = time.perf_counter() - t
             n = walk_launches() - n0
             if kind == "detect" and a[0].walk_impl == "cuda":
-                want = expected_launches(a[0], tuple(a[1].shape[:2]))
+                captures, replays = (x - y for x, y in
+                                     zip(graph_counts(), g0))
+                # a replay of the held CUDA graph launches its kernels
+                # with the graph: they were counted at the capture
+                want = 0 if replays > captures else \
+                    expected_launches(a[0], tuple(a[1].shape[:2]))
                 if n != want:
                     raise RuntimeError(f"train: a detect launched the walk "
                                        f"kernel {n} times, expected {want}")
@@ -2492,6 +2625,7 @@ def main() -> int:
     phase_multires(frames)
     phase_nms(all_c, kern["rootv"])
     paths.update(phase_serving(smi))
+    phase_graph(smi)
     paths.update(phase_train(smi))
     paths["face68"] = phase_face68(frames, smi)
     paths["face13"] = phase_face13(frames)

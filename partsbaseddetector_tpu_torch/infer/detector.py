@@ -20,6 +20,8 @@ frames of a batch folded into the level axis:
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 from typing import (Callable, ContextManager, Dict, Iterator, List,
                     Optional, Sequence, Tuple)
 
@@ -111,19 +113,17 @@ class DepthPrune:
     tol: float = 0.5
 
 
-def _depth_bad_mask(depth: torch.Tensor, levels, feat_pad,
-                    cfg: DepthPrune) -> torch.Tensor:
-    """(B, L, fh, fw) bool: True where the response cell's observed
-    depth is implausible for its level's scale, for the L ``levels`` of
-    a bucket of padded feature size ``feat_pad``.  depth: (B, dh, dw)
-    float32 maps in meters, sampled at cell centers with host-computed
-    indices (partsbaseddetector_tpu/infer/detector.py:99-117).  The
-    comparison runs in float32 against the float32 image of each level's
-    plausible depth and tolerance, as the JAX package's does."""
-    dh, dw = depth.shape[-2:]
-    fh, fw = feat_pad
+def _depth_tables(bucket, depth_hw: Tuple[int, int], cfg: DepthPrune,
+                  device: torch.device):
+    """The depth pruning's constants for the levels of ``bucket`` and a
+    (dh, dw) depth map: ys (L, fh) and xs (L, fw) int64, the map's row
+    and column under each response cell's center, computed on the host
+    (partsbaseddetector_tpu/infer/detector.py:99-117); zexp and lim (L,
+    1, 1) float32, each level's plausible depth and tolerance."""
+    dh, dw = depth_hw
+    fh, fw = bucket.feat_pad
     ys, xs, zexp, lim = [], [], [], []
-    for lvl in levels:
+    for lvl in bucket.levels:
         th, tw = lvl.featsize
         ys.append(np.clip(((np.arange(fh) + 0.5) * dh
                            / max(th, 1)).astype(np.int32), 0, dh - 1))
@@ -134,12 +134,61 @@ def _depth_bad_mask(depth: torch.Tensor, levels, feat_pad,
         lim.append(cfg.tol * z)
 
     def dev(a, dtype):
-        return torch.as_tensor(np.asarray(a, dtype), device=depth.device)
-    ys, xs = dev(ys, np.int64), dev(xs, np.int64)
+        return torch.as_tensor(np.asarray(a, dtype), device=device)
+    return (dev(ys, np.int64), dev(xs, np.int64),
+            dev(zexp, np.float32)[:, None, None],
+            dev(lim, np.float32)[:, None, None])
+
+
+def _depth_bad_mask(depth: torch.Tensor, tables) -> torch.Tensor:
+    """(B, L, fh, fw) bool: True where the response cell's observed
+    depth is implausible for its level's scale.  depth: (B, dh, dw)
+    float32 maps in meters; tables: _depth_tables' (ys, xs, zexp, lim)
+    of the L levels.  The comparison runs in float32 against the float32
+    image of each level's plausible depth and tolerance, as the JAX
+    package's does."""
+    ys, xs, zexp, lim = tables
     sdepth = depth[:, ys[:, :, None], xs[:, None, :]]   # (B, L, fh, fw)
-    zexp = dev(zexp, np.float32)[:, None, None]
-    lim = dev(lim, np.float32)[:, None, None]
     return (sdepth > 0) & ((sdepth - zexp).abs() > lim)
+
+
+class PlanTensors:
+    """A pyramid plan's constants on one device, built once (plan_tensors
+    caches them): stages 1-2 read them there instead of copying host
+    lists to the device on every call, and a copy from pageable host
+    memory cannot be captured in a CUDA graph (FrameGraph).  ``frame``
+    (2,) int32 the frame's size; per bucket ``imsizes`` (L, 2) and
+    ``featsizes`` (L, 2) int32, the levels' true image and feature
+    sizes, and ``scales`` (L,) float32, pixels per cell; ``depth``, the
+    depth pruning's tables of a bucket per depth map size and config."""
+
+    def __init__(self, plan: PyramidPlan, device: torch.device):
+        def dev(values, dtype):
+            return torch.tensor(values, dtype=dtype, device=device)
+        self.plan, self.device = plan, device
+        self.frame = dev(plan.imsize, torch.int32)
+        self.imsizes = [dev([lvl.imsize for lvl in b.levels], torch.int32)
+                        for b in plan.buckets]
+        self.featsizes = [dev([lvl.featsize for lvl in b.levels],
+                              torch.int32) for b in plan.buckets]
+        self.scales = [dev([lvl.scale for lvl in b.levels], torch.float32)
+                       for b in plan.buckets]
+        self._depth: Dict[tuple, tuple] = {}
+
+    def depth(self, octave: int, depth_hw: Tuple[int, int],
+              cfg: DepthPrune):
+        """_depth_tables of bucket ``octave`` for a (dh, dw) map."""
+        key = (octave, tuple(depth_hw), cfg)
+        if key not in self._depth:
+            self._depth[key] = _depth_tables(self.plan.buckets[octave],
+                                             key[1], cfg, self.device)
+        return self._depth[key]
+
+
+@functools.lru_cache(maxsize=64)
+def plan_tensors(plan: PyramidPlan, device: torch.device) -> PlanTensors:
+    """The PlanTensors of a plan on a device, one per (plan, device)."""
+    return PlanTensors(plan, device)
 
 
 def _dp_groups(bucket, dp_split: int):
@@ -164,23 +213,21 @@ def _ladder_hog(images: torch.Tensor, plan: PyramidPlan, norient: int,
     """Stage 1 per bucket: the resize ladder into the bucket's padded
     buffer, then HOG.  images: (B, H, W, C).  Yields (bucket, imsizes
     (L, 2) int32, feats (B*L, fh, fw, flen)), frames b-major."""
-    dev = images.device
+    consts = plan_tensors(plan, images.device)
     B = images.shape[0]
     img = images.to(torch.float32)
-    prev_buf = prev_levels = None
+    prev_buf = None
     for bucket in plan.buckets:
         L = len(bucket.levels)
         with stage("ladder+hog"):
-            imsizes = torch.tensor([lvl.imsize for lvl in bucket.levels],
-                                   dtype=torch.int32, device=dev)
+            imsizes = consts.imsizes[bucket.octave]
             if bucket.octave == 0:
-                buf = resize_linear(img[:, None], bucket.img_pad, imsizes)
+                buf = resize_linear(img[:, None], bucket.img_pad, imsizes,
+                                    consts.frame)
             else:
-                prev_sizes = torch.tensor(
-                    [lvl.imsize for lvl in prev_levels[:L]],
-                    dtype=torch.int32, device=dev)
-                buf = pyr_down(prev_buf[:, :L], bucket.img_pad, prev_sizes)
-            prev_buf, prev_levels = buf, bucket.levels      # (B, L, ...)
+                buf = pyr_down(prev_buf[:, :L], bucket.img_pad,
+                               consts.imsizes[bucket.octave - 1][:L])
+            prev_buf = buf                                  # (B, L, ...)
             feats = hog_features(
                 buf.flatten(0, 1), plan.binsize, norient, flen,
                 true_size=imsizes.repeat(B, 1), feat_pad=bucket.feat_pad)
@@ -216,37 +263,34 @@ def pyramid_pdfs(images: torch.Tensor, packed: PackedModel,
     HOG still run whole); a bucket with none gets None in place of
     pdfs and empty tsizes and scales."""
     conv = CONV_ENGINES[conv_engine]
-    dev = images.device
+    consts = plan_tensors(plan, images.device)
     B = images.shape[0]
     ranges = levels or [(0, len(b.levels)) for b in plan.buckets]
     out = []
     for (bucket, _, feats), (lo, hi) in zip(
             _ladder_hog(images, plan, packed.norient, packed.flen, stage),
             ranges):
-        mine = bucket.levels[lo:hi]
-        if not mine:
-            out.append((bucket, None,
-                        torch.zeros((0, 2), dtype=torch.int32, device=dev),
-                        torch.zeros(0, dtype=torch.float32, device=dev)))
+        tsizes = consts.featsizes[bucket.octave][lo:hi]
+        scales = consts.scales[bucket.octave][lo:hi]
+        n = len(bucket.levels[lo:hi])
+        if not n:
+            out.append((bucket, None, tsizes, scales))
             continue
-        if len(mine) < len(bucket.levels):
+        if n < len(bucket.levels):
             feats = feats.unflatten(0, (B, -1))[:, lo:hi].flatten(0, 1)
         with stage("conv"):
-            tsizes = torch.tensor([lvl.featsize for lvl in mine],
-                                  dtype=torch.int32, device=dev)
             pdfs = conv(feats, packed.bank, true_size=tsizes.repeat(B, 1)
-                        ).unflatten(0, (B, len(mine)))
+                        ).unflatten(0, (B, n))
             if pdfs_transform is not None:
                 pdfs = pdfs_transform(pdfs)
-        scales = torch.tensor([lvl.scale for lvl in mine],
-                              dtype=torch.float32, device=dev)
         out.append((bucket, pdfs, tsizes, scales))
     if depths is not None and depth_prune is not None:
         with profiling.span("prune"):
             for (bucket, pdfs, _, _), (lo, hi) in zip(out, ranges):
                 if pdfs is not None:
-                    bad = _depth_bad_mask(depths, bucket.levels[lo:hi],
-                                          bucket.feat_pad, depth_prune)
+                    tables = consts.depth(bucket.octave, depths.shape[-2:],
+                                          depth_prune)
+                    bad = _depth_bad_mask(depths, [t[lo:hi] for t in tables])
                     pdfs.masked_fill_(bad[..., None], NEG)
     return out
 
@@ -313,6 +357,61 @@ def dp_backtrack_bucket(bucket, pdfs, tsizes, scales,
                     out.append(cands.map(
                         lambda x: x.unflatten(0, (B, Lg * k_per_level))))
     return out
+
+
+def _free_cublas_workspaces() -> None:
+    """Free cuBLAS's per-stream workspaces; the next matmul on a stream
+    allocates its stream's anew (a build without CUDA has none)."""
+    free = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if free is not None:
+        free()
+
+
+class FrameGraph:
+    """The one-frame detection program (stages 1-4: from the frame in a
+    static input buffer to the sorted Candidates) captured as one CUDA
+    graph for one key, and replayed: the hand-written kernels are
+    captured with the rest.  Spans and counters inside the program
+    record once, while it is captured; every replay is a span
+    ``detect.graph`` and counts one in ``detect.graph.replays``, a
+    capture one in ``detect.graph.captures``.  A replay returns a clone
+    of the static Candidates, so results outlive the next call."""
+
+    def __init__(self, key, program: Callable, frames: torch.Tensor,
+                 depths: Optional[torch.Tensor]):
+        self.key = key
+        self.frames = frames.clone()
+        self.depths = None if depths is None else depths.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        # cuBLAS holds a workspace for each stream a matmul runs on (32
+        # MiB on an H100), and the capture runs on a stream of its own:
+        # freed before the capture, the eager stream's makes room for the
+        # capture stream's, and freed after it, the capture stream's
+        # stays in the graph's private pool, which nothing else allocates
+        # from.  So a capture's allocated peak is an eager call's.
+        with torch.cuda.device(frames.device):
+            _free_cublas_workspaces()
+            with torch.cuda.graph(self.graph):
+                self.out = program(self.frames, self.depths)
+            _free_cublas_workspaces()
+        # the last replay's end: a replay on another stream waits for it
+        # before it writes the static inputs
+        self.done = torch.cuda.Event()
+        profiling.count("detect.graph.captures")
+
+    def replay(self, frames: torch.Tensor, depths: Optional[torch.Tensor]
+               ) -> argmax_ops.Candidates:
+        with profiling.span("detect.graph"), torch.cuda.device(frames.device):
+            profiling.count("detect.graph.replays")
+            stream = torch.cuda.current_stream()
+            stream.wait_event(self.done)
+            self.frames.copy_(frames)
+            if depths is not None:
+                self.depths.copy_(depths)
+            self.graph.replay()
+            out = self.out.map(torch.clone)
+            self.done.record(stream)
+        return out
 
 
 def device_frames(images, ndim: int, device: torch.device) -> torch.Tensor:
@@ -397,6 +496,12 @@ class DetectorFacade:
         self.k_per_level = int(k_per_level)
         self.depth_prune = depth_prune
         self._plans: Dict[Tuple[int, int], PyramidPlan] = {}
+        # the one-frame program's CUDA graph (FrameGraph) and the key of
+        # the last graphable call; the lock guards both and the graph's
+        # static buffers
+        self._graph: Optional[FrameGraph] = None
+        self._last_key = None
+        self._graph_lock = threading.Lock()
 
     def _pack(self, model: PartsModel) -> PackedModel:
         return pack_model(model, self.device)
@@ -421,8 +526,41 @@ class DetectorFacade:
             with profiling.span("upload"):
                 frames, depths, part_masks = upload(
                     images, ndim, self.device, depths, part_masks)
+            if self._graphable(frames, part_masks, stage, program):
+                return self._graphed(frames, depths)
             return (program or self._program)(frames, depths, part_masks,
                                               stage)
+
+    def _graphable(self, frames: torch.Tensor, part_masks, stage,
+                   program) -> bool:
+        """Whether a call runs through the one-frame CUDA graph: one
+        frame on CUDA, this facade's own single-resolution program, no
+        part masks and the default stage hook (a caller's hook records
+        per call, which a replay would skip)."""
+        return (self.device.type == "cuda" and frames.shape[0] == 1
+                and program is None and part_masks is None
+                and stage is profiling.stage and not self.multires)
+
+    def _graphed(self, frames: torch.Tensor, depths
+                 ) -> argmax_ops.Candidates:
+        """The program of a graphable call: keyed by the frame's shape
+        and dtype and the depth map's shape.  A key other than the last
+        call's runs eagerly; the second call in a row of one key
+        captures the graph (dropping the one held before), and every
+        call of the held graph's key replays it."""
+        key = (tuple(frames.shape), frames.dtype,
+               None if depths is None else tuple(depths.shape))
+        with self._graph_lock:
+            graph = self._graph
+            if graph is None or graph.key != key:
+                if key != self._last_key:
+                    self._last_key = key
+                    return self._program(frames, depths)
+                self._graph = None
+                graph = self._graph = FrameGraph(key, self._program,
+                                                 frames, depths)
+            self._last_key = key
+            return graph.replay(frames, depths)
 
     def _program(self, frames: torch.Tensor, depths=None, part_masks=None,
                  stage: StageTimer = profiling.stage,
@@ -500,6 +638,8 @@ class DetectorFacade:
                              "interval")
         self.packed = self._pack(model)
         self.model = model
+        with self._graph_lock:          # weights and thresh are baked in
+            self._graph = self._last_key = None
 
     @staticmethod
     def candidates_to_detections(cands: argmax_ops.Candidates,

@@ -18,6 +18,7 @@ occlusion pattern and running a VALID conv.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -49,6 +50,16 @@ def pack_filter_bank(filters: Sequence[np.ndarray],
     return bank, sizes
 
 
+@functools.lru_cache(maxsize=16)
+def _occlusion_pattern(C: int, dtype: torch.dtype, device: torch.device
+                       ) -> torch.Tensor:
+    """(C,) zeros with a one in the truncation channel C-1, built once
+    per device."""
+    occl = torch.zeros(C, dtype=dtype, device=device)
+    occl[C - 1].fill_(1.0)
+    return occl
+
+
 def occlusion_pad(features: torch.Tensor,
                   pads: Tuple[int, int, int, int],
                   true_size=None) -> torch.Tensor:
@@ -67,16 +78,16 @@ def occlusion_pad(features: torch.Tensor,
         xx = torch.arange(W, device=dev)[None, :]
         inside = ((yy < ts[..., 0, None, None])
                   & (xx < ts[..., 1, None, None]))[..., None]
-        occl = torch.zeros(C, dtype=features.dtype, device=dev)
-        occl[C - 1] = 1.0
-        features = torch.where(inside, features, occl)
+        features = torch.where(inside, features,
+                               _occlusion_pattern(C, features.dtype, dev))
     padded = F.pad(features, (0, 0, l, r, t, b))
-    # the truncation channel reads one in the halo
+    # the truncation channel reads one in the halo (fill_ on views: a
+    # Python scalar assigned by index goes through a host tensor)
     Hp, Wp = H + t + b, W + l + r
-    padded[..., :t, :, C - 1] = 1.0
-    padded[..., t + H:Hp, :, C - 1] = 1.0
-    padded[..., :, :l, C - 1] = 1.0
-    padded[..., :, l + W:Wp, C - 1] = 1.0
+    padded[..., :t, :, C - 1].fill_(1.0)
+    padded[..., t + H:Hp, :, C - 1].fill_(1.0)
+    padded[..., :, :l, C - 1].fill_(1.0)
+    padded[..., :, l + W:Wp, C - 1].fill_(1.0)
     return padded
 
 

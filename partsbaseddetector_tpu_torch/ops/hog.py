@@ -16,6 +16,8 @@ batch of padded images with one true (h, w) per image:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -28,6 +30,14 @@ _UU = np.array([1.000, 0.9397, 0.7660, 0.5000, 0.1736,
                 -0.1736, -0.5000, -0.7660, -0.9397])
 _VV = np.array([0.000, 0.3420, 0.6428, 0.8660, 0.9848,
                 0.9848, 0.8660, 0.6428, 0.3420])
+
+
+@functools.lru_cache(maxsize=16)
+def _orientation_units(half: int, device: torch.device):
+    """The first ``half`` unit vectors' (uu, vv) as float32 tensors on
+    ``device``, built once per device."""
+    return (torch.as_tensor(_UU[:half], dtype=DEFAULT_DTYPE, device=device),
+            torch.as_tensor(_VV[:half], dtype=DEFAULT_DTYPE, device=device))
 
 
 def hog_output_shape(imsize, binsize: int):
@@ -148,15 +158,13 @@ def hog_features(im: torch.Tensor, binsize: int, norient: int, flen: int,
     # ---- orientation snap, tie order d0, -d0, d1, -d1, ... strict >
     # (reference: src/HOGFeatures.cpp:242-249): a first-wins equality
     # mask in that slot order, via the reversed-iota max
-    uu = torch.as_tensor(_UU[:half], dtype=DEFAULT_DTYPE, device=dev)
-    vv = torch.as_tensor(_VV[:half], dtype=DEFAULT_DTYPE, device=dev)
+    uu, vv = _orientation_units(half, dev)
     dots = dxb[..., None] * uu + dyb[..., None] * vv       # (N, H, W, half)
     cand = torch.stack([dots, -dots], dim=-1).reshape(
         dots.shape[:3] + (norient,))
     bestv = cand.amax(dim=-1, keepdim=True)
     iota = torch.arange(norient, dtype=torch.int32, device=dev)
-    rev = torch.where(cand == bestv, norient - 1 - iota,
-                      torch.tensor(-1, dtype=torch.int32, device=dev))
+    rev = torch.where(cand == bestv, norient - 1 - iota, -1)
     winner = (norient - 1) - rev.amax(dim=-1, keepdim=True)
     # zero/negative best -> orientation 0 == slot 0 (+d0)
     winner = torch.where(bestv > 0, winner, torch.zeros_like(winner))
@@ -179,8 +187,7 @@ def hog_features(im: torch.Tensor, binsize: int, norient: int, flen: int,
         N, bw_pad, bh_pad, norient).transpose(1, 2)        # (N, C, D, O)
     # slots -> orientation channels: orientation o reads slot 2o
     # (o < half) or 2(o-half)+1
-    perm = np.concatenate([np.arange(half) * 2, np.arange(half) * 2 + 1])
-    hist = hist_slots[..., torch.as_tensor(perm, device=dev)]
+    hist = hist_slots.unflatten(-1, (half, 2)).transpose(-1, -2).flatten(-2)
 
     # ---- block energy (reference: src/HOGFeatures.cpp:270-283)
     s = hist[..., :half] + hist[..., half:norient]

@@ -88,23 +88,26 @@ def _reflect101(idx: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return torch.where(idx >= n, period - idx, idx)
 
 
+#: the 5-tap binomial kernel [1, 4, 6, 4, 1] / 16, each tap exact in
+#: float32
+_PYR_TAPS = (1 / 16, 4 / 16, 6 / 16, 4 / 16, 1 / 16)
+
+
 def _pyrdown_matrix(n_out_pad: int, n_in_pad: int, n_in) -> torch.Tensor:
     """(..., n_out_pad, n_in_pad) matrices implementing the 1-D 5-tap
     binomial [1,4,6,4,1]/16 blur + decimate-by-2 with BORDER_REFLECT_101,
     output size ceil(n_in / 2) (reference pyrDown semantics).
     n_in: (...,) int tensor."""
     dev = n_in.device
-    k = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], dtype=DEFAULT_DTYPE,
-                     device=dev) / 16.0
     n_in_i = n_in.to(torch.int32)[..., None]
     n_out = (n_in_i + 1) // 2
     y = torch.arange(n_out_pad, dtype=torch.int32, device=dev)
     j = torch.arange(n_in_pad, dtype=torch.int32, device=dev)
     m = torch.zeros(n_in_i.shape[:-1] + (n_out_pad, n_in_pad),
                     dtype=DEFAULT_DTYPE, device=dev)
-    for t in range(5):
+    for t, tap in enumerate(_PYR_TAPS):
         src = _reflect101(2 * y + t - 2, n_in_i)
-        m = m + k[t] * (j == src[..., None]).to(DEFAULT_DTYPE)
+        m = m + tap * (j == src[..., None]).to(DEFAULT_DTYPE)
     row_valid = (y < n_out)[..., None]
     col_valid = (j < n_in_i[..., None])
     return m * row_valid * col_valid

@@ -27,7 +27,9 @@ Here the port has one tracer and the device views it is measured by:
   component and nparts), one a dp group and component, around that
   pass's stages ``dp`` (attributes bucket, its first pyramid level, the
   group's levels lo..hi-1 in it and component), ``seeds+sort`` and
-  ``walk``; the final ``seeds+sort``), ``fetch``
+  ``walk``; the final ``seeds+sort``; or, in their place, ``detect.graph``,
+  a replay of the one-frame CUDA graph, infer/detector.FrameGraph, whose
+  program's spans record once, at its capture), ``fetch``
   (Detector.candidates_to_detections), and on the serving path
   (infer/stream.py) ``serve.frame`` (attributes seq, the frame's number
   in the stream, and frame, its index in the batch), ``serve.wait``
@@ -43,9 +45,13 @@ Here the port has one tracer and the device views it is measured by:
   the walk kernel), ``dp.launches`` (launches of the DP kernel,
   csrc/dp.cu: two a depth of the tree a (group, component) call, two a
   part on the filter-keyed DP of shared filter ids), ``views`` (one a
-  (dp group, component) pass) and ``parts.padded`` (the part rows a
+  (dp group, component) pass), ``parts.padded`` (the part rows a
   pass pads: its candidates times the model's most parts less the
-  component's, ops/argmax._walked_candidates).
+  component's, ops/argmax._walked_candidates), and
+  ``detect.graph.captures`` and ``detect.graph.replays`` (the one-frame
+  CUDA graph's captures and replays; a call that captures also replays,
+  and the launch counters count a graph's launches once, at its
+  capture).
 * ``CudaStageTimer``: CUDA events at the detector's ``stage=`` hook,
   device ms per stage of one call;
 * ``device_trace`` and ``device_busy``: a torch.profiler trace of a
